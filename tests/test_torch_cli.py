@@ -108,6 +108,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "sys.modules['jax'] = None\n"
         "sys.modules['voxtpu'] = None\n"
         "import voxtpu_torch, voxtpu_torch.cli, voxtpu_torch.interop\n"
+        "import voxtpu_torch.ops.soft_vox, voxtpu_torch.ops.soft_vox_fused\n"
+        "import voxtpu_torch.ops.soft_vox_cuda, voxtpu_torch.models.fit\n"
+        "import voxtpu_torch.models.csg_fit, voxtpu_torch.examples.fit_vertices\n"
         "rc = voxtpu_torch.cli.main(sys.argv[1:])\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "sys.exit(rc)\n"

@@ -13,7 +13,9 @@ import torch
 from voxtpu_torch.grids.voxel_grid import GridSpec, pack_bits
 from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
-from voxtpu_torch.ops import jfa_cuda, vox_cuda, vox_slots_banded
+from voxtpu_torch.models.fit import VoxelFit, soft_iou_loss
+from voxtpu_torch.ops import (jfa_cuda, soft_vox, soft_vox_cuda, soft_vox_fused,
+                              vox_cuda, vox_slots_banded)
 from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
 from voxtpu_torch.ops.reference import jfa_ref, voxelize_ref
 
@@ -121,3 +123,108 @@ def test_kernels_reject_bad_arguments(dev):
     want = vox_slots_banded.banded_fill_plain(local[:1], xs[:1], tile[:1],
                                               basew[:1], n=64, tc=128, band=64)
     assert torch.equal(got, want) and bool((want != 0).any())
+
+
+def _soft_case(n):
+    """A jittered icosphere, its soft plan (pad 2) at n and a seeded
+    random cotangent."""
+    c, f = procedural.icosphere(3, center=(0.1, -0.2, 0.3))
+    rng = np.random.default_rng(n)
+    c = (c + rng.normal(0, 1e-3, c.shape)).astype(np.float32)
+    mesh = Mesh(name="s", coords=c, faces=f, faces_normals=f)
+    spec = GridSpec.fit(c, n)
+    g = torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32))
+    return c, soft_vox.make_soft_plan(mesh, spec, pad_window=2), g
+
+
+def _max_err(a, b):
+    return float((a.cpu() - b.cpu()).abs().max())
+
+
+# Tolerances: occupancy 1e-4 absolute; cotangents 1e-3 x max|plain| (the
+# backward kernels sum in slot order, the plain versions with index_add_).
+@pytest.mark.parametrize("n", [32, 128, 160])
+def test_fused_kernels_match_plain(dev, n):
+    c, sp, g = _soft_case(n)
+    fp = soft_vox_fused.FusedSoftPlan(sp, dev)
+    prm = fp.prm(0.5, 0.5)
+    tables = soft_vox_fused.tables_of(torch.from_numpy(c).to(dev), fp).detach()
+    args = (tables, fp.cells_d, fp.tblidx_d, fp.batch_tile_d)
+    kw = dict(n=n, tc=fp.tc, prm=prm)
+    b7, b8 = soft_vox_fused.fused_fwd.launches, soft_vox_fused.fused_bwd.launches
+    got = soft_vox_fused.fused_fwd(*args, fp.run_start_d, **kw)
+    want = soft_vox_fused.fused_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert soft_vox_fused.fused_fwd.launches == b7 + 1
+    assert _max_err(got, want) <= 1e-4 and float(want.max()) > 0.5
+    g = g.to(dev)
+    got = soft_vox_fused.fused_bwd(*args, g, **kw)
+    want = soft_vox_fused.fused_bwd_plain(*args, g, **kw)
+    torch.cuda.synchronize()
+    assert soft_vox_fused.fused_bwd.launches == b8 + 1
+    assert _max_err(got, want) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("n", [32, 160])
+def test_fragment_kernels_match_plain(dev, n):
+    c, sp, g = _soft_case(n)
+    cp = soft_vox_cuda.SoftCudaPlan(sp, dev)
+    vs, _, tau_x = soft_vox.temperatures(sp.spec, 0.5, 0.5)
+    prm = (soft_vox.f32(sp.spec.origin[0]), vs, tau_x)
+    _, w, x = soft_vox.soft_fragments(torch.from_numpy(c).to(dev), sp,
+                                      tau_edge_frac=0.5, tau_x_frac=0.5)
+    wb, xb = soft_vox_cuda._Permute.apply(w, x, cp)
+    args = (wb, xb, cp.cells_d, cp.batch_tile_d)
+    kw = dict(n=n, tc=cp.tc, prm=prm)
+    got = soft_vox_cuda.fragment_fwd(*args, cp.run_start_d, **kw)
+    want = soft_vox_cuda.fragment_fwd_plain(*args, **kw)
+    assert _max_err(got, want) <= 1e-4 and float(want.max()) > 0.5
+    g = g.to(dev)
+    for got, want in zip(soft_vox_cuda.fragment_bwd(*args, g, **kw),
+                         soft_vox_cuda.fragment_bwd_plain(*args, g, **kw)):
+        assert _max_err(got, want) <= 1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("engine", ["fused", "cuda"])
+def test_engine_gradients_on_the_card_match_the_cpu(dev, engine):
+    """The coordinate gradient of soft_iou_loss through an engine's
+    kernels equals the same engine's plain versions on the CPU."""
+    c, sp, _ = _soft_case(64)
+    target = torch.from_numpy(voxelize_ref(
+        Mesh(coords=c, faces=sp.faces_array, faces_normals=sp.faces_array),
+        sp.spec).astype(np.float32))
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        fit = VoxelFit(sp, target.to(device), engine=engine, refresh_every=0)
+        x = torch.from_numpy(c).to(device).requires_grad_(True)
+        fit._loss_fn(fit._fwd(x), fit.target).backward()
+        grads.append(x.grad.cpu())
+    assert _max_err(*grads) <= 1e-3 * float(grads[1].abs().max())
+    assert soft_iou_loss(target, target) < 1e-6
+
+
+def test_forward_sums_do_not_depend_on_order(dev):
+    """B13 fwd (whose accumulate B7 shares) adds a cell's terms as 64-bit
+    fixed-point integers. 8192 slots in two cells whose weights cancel in
+    pairs, with partial sums near 1500 on the way, come to exactly 0,
+    where a float32 running sum would be ~1e-3 off; a NaN weight makes
+    its cell's row NaN, as in the plain version, and leaves the rest."""
+    n, tc, nb = 32, 128, 16
+    u = np.random.default_rng(3).uniform(0.5, 1.0, nb * 256).astype(np.float32)
+    wb = torch.from_numpy(np.concatenate([u, -u])).view(nb, 4, 128).to(dev)
+    xb = torch.full_like(wb, 1e3)  # beyond the grid: every sigmoid is 1
+    cells = torch.zeros(wb.shape, dtype=torch.int32, device=dev)
+    cells[:, :, 1::2] = 5
+    tile = torch.zeros(nb, dtype=torch.int32, device=dev)
+    run_start = torch.tensor([0, nb], dtype=torch.int32, device=dev)
+    kw = dict(n=n, tc=tc, prm=(0.0, 1.0 / n, 0.5 / n))
+    got = soft_vox_cuda.fragment_fwd(wb, xb, cells, tile, run_start, **kw)
+    want = soft_vox_cuda.fragment_fwd_plain(wb, xb, cells, tile, **kw)
+    assert float(want.abs().max()) == 0.0 and float(got.abs().max()) == 0.0
+    wb[3, 2, 7] = float("nan")  # an odd lane: cell 5, row (z, y) = (0, 5)
+    got = soft_vox_cuda.fragment_fwd(wb, xb, cells, tile, run_start, **kw)
+    want = soft_vox_cuda.fragment_fwd_plain(wb, xb, cells, tile, **kw)
+    for occ in (got, want):
+        assert bool(torch.isnan(occ[0, 5]).all())
+        occ[0, 5] = 0.0
+        assert bool(torch.isfinite(occ).all())

@@ -1,10 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources under `csrc/*.cu` have a plain C interface. At first use
-they are compiled with nvcc for Hopper (`sm_90a`) into one shared
-library under `csrc/build/` (listed in `.gitignore`), named by a hash
-of the sources and flags so that an edit rebuilds it, and loaded with
-ctypes. A wrapper passes tensors as `data_ptr()` integers and PyTorch's
+they are compiled with nvcc for Hopper (`sm_90a`), one nvcc process per
+source, all started together, and linked into one shared library under
+`csrc/build/` (listed in `.gitignore`), named by a hash of the sources
+and flags so that an edit rebuilds it, and loaded with ctypes. A wrapper passes tensors as `data_ptr()` integers and PyTorch's
 current stream; each C entry returns `cudaGetLastError()` after its
 launch, and `launch` raises when that is not 0.
 
@@ -32,15 +32,26 @@ BUILD_DIR = CSRC / "build"
 
 # -fmad=false: no fused multiply-add contraction anywhere (the JFA
 # distance and every float comparison must round term for term).
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C entry point -> argtypes; every entry returns a cudaError_t as int.
 SIGNATURES = {
+    # tables, cells, tblidx, batch_tile, run_start, num_runs, tb, tbl, n,
+    # tc, num_tiles, ox, oy, oz, vs, tau_e, tau_x, out, stream
+    "vt_fused_fwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P, _P],
+    # tables, cells, tblidx, batch_tile, g, num_batches, tb, tbl, n, tc,
+    # num_tiles, ox, oy, oz, vs, tau_e, tau_x, dtab, stream
+    "vt_fused_bwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P, _P],
+    # wb, xb, cells, batch_tile, run_start, num_runs, tb, n, tc, num_tiles,
+    # ox, vs, tau_x, out, stream
+    "vt_fragment_fwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P, _P],
+    # wb, xb, cells, batch_tile, g, num_batches, tb, n, tc, num_tiles,
+    # ox, vs, tau_x, dw, dx, stream
+    "vt_fragment_bwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P, _P, _P],
     # local, xs, batch_tile, batch_basew, B, tb, tc, nw, bwords, num_tiles,
     # out, stream
     "vt_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -84,23 +95,37 @@ def _digest() -> str:
 
 
 def build() -> Build:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists:
+    one nvcc per source, all started together, then one link."""
     lib = BUILD_DIR / f"libvoxtpu_torch_{_digest()}.so"
     if lib.exists():
         return Build(lib, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    cmds.append([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
-    return Build(lib, seconds, proc.stderr)
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds[:-1]]
+        logs = [proc.communicate()[1] for proc in procs]
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            procs.append(link)
+            logs.append(link.stdout + link.stderr)
+        failed = [f"{' '.join(cmd)}\n{log}" for cmd, proc, log in zip(cmds, procs, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return Build(lib, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.lru_cache(maxsize=1)

@@ -10,7 +10,11 @@ against voxtpu's.
   bit-identical (a `view`, no arithmetic);
 - the banded pipeline's per-call state: the nine slot coordinate rows,
   `local`, `batch_tile`, `batch_basew` and the `wide` tuple of
-  `voxtpu.ops.vox_slots_banded.BandedSlotVoxPipeline`.
+  `voxtpu.ops.vox_slots_banded.BandedSlotVoxPipeline`;
+- the soft engines' slot layouts (`voxtpu.ops.soft_vox_fused.
+  FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`);
+- a `VoxelFit` state: coordinates, optax's Adam (count, mu, nu) and the
+  step, the leaves of voxtpu's checkpoints.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from voxtpu_torch.models.fit import FitState
+from voxtpu_torch.ops.soft_vox_cuda import SoftCudaPlan
+from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedState
 
 
@@ -65,3 +72,38 @@ def banded_state(rows, local, batch_tile, batch_basew, wide,
                        batch_tile=_i32(batch_tile, device),
                        batch_basew=_i32(batch_basew, device),
                        wide=port_wide)
+
+
+def fused_plan_from_voxtpu(soft_plan, cells_b, tblidx_b, batch_tile,
+                           table_face_flat, device="cpu") -> FusedSoftPlan:
+    """The port's fused plan on voxtpu's `FusedSoftPlan` layout: its
+    `cells_b`, `tblidx_b`, `batch_tile` and `table_face_flat`, over the
+    port's soft plan of the same mesh. voxtpu's FIRST/LAST flags and
+    tile mask drive its sequential TPU grid and are not needed."""
+    return FusedSoftPlan.from_layout(soft_plan, device, cells_b, tblidx_b,
+                                     batch_tile, table_face_flat)
+
+
+def soft_cuda_plan_from_voxtpu(soft_plan, cells_b, batch_tile, perm_fwd,
+                               device="cpu") -> SoftCudaPlan:
+    """The port's per-fragment plan on voxtpu's `SoftPallasPlan` layout.
+
+    `perm_fwd[j]` is the source of slot j in voxtpu's sort of the
+    fragments followed by pads; a source past the fragments is a pad,
+    which the port's gather takes from the appended zero."""
+    total = np.asarray(batch_tile).size * np.asarray(cells_b)[0].size
+    src = np.array(perm_fwd, np.int64)[:total]
+    nfrag = soft_plan.num_fragments
+    src[src >= nfrag] = nfrag
+    return SoftCudaPlan.from_layout(soft_plan, device, cells_b, batch_tile, src)
+
+
+def fit_state_from_voxtpu(coords, count, mu, nu, step, device="cpu") -> FitState:
+    """The port's FitState from voxtpu's `VoxelFit` state leaves: (V, 3)
+    float32 coordinates, optax Adam's count (int32), mu and nu, and the
+    int32 step. `torch.optim.Adam`'s state holds the same three values."""
+    return FitState(coords=_f32(coords, device),
+                    opt_state={"step": torch.tensor(float(np.asarray(count))),
+                               "exp_avg": _f32(mu, device),
+                               "exp_avg_sq": _f32(nu, device)},
+                    step=int(np.asarray(step)))

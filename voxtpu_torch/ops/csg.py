@@ -1,12 +1,16 @@
-"""CSG booleans on packed voxel grids (hard word ops).
+"""CSG booleans on voxel grids.
 
-Port of the hard path of `voxtpu/ops/csg.py`: word-wise ``a | b``,
-``a & b``, ``a & ~b`` on int32 words (the reference functors,
-`csg/csg.h:14-30`). One memory-bound elementwise pass; torch ops on
-any device. The soft (differentiable) CSG is not ported yet.
+Port of `voxtpu/ops/csg.py`. Hard: word-wise ``a | b``, ``a & b``,
+``a & ~b`` on packed int32 words (the reference functors,
+`csg/csg.h:14-30`), one memory-bound elementwise pass. Soft
+(differentiable, on float occupancy in [0, 1]): max / min, whose
+gradient splits a tie 0.5 / 0.5, as jnp.maximum / jnp.minimum do.
+Torch ops on any device.
 """
 
 from __future__ import annotations
+
+import torch
 
 from voxtpu_torch.grids.voxel_grid import VoxelGrid
 
@@ -31,3 +35,31 @@ def csg(grid1: VoxelGrid, grid2: VoxelGrid, op: str) -> VoxelGrid:
     words = _WORD_OPS[op](grid1.words, grid2.words)
     return VoxelGrid(words=words, origin=grid1.origin,
                      voxel_size=grid1.voxel_size)
+
+
+def soft_union(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(a, b)
+
+
+def soft_intersection(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(a, b)
+
+
+def soft_difference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(a, 1.0 - b)
+
+
+SOFT_OPS = {
+    "union": soft_union,
+    "intersection": soft_intersection,
+    "difference": soft_difference,
+}
+
+
+def soft_csg(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+    """Differentiable CSG on float occupancy grids in [0, 1]."""
+    if op == "void":
+        return a
+    if op not in SOFT_OPS:
+        raise ValueError(f"unknown CSG op {op!r}")
+    return SOFT_OPS[op](a, b)

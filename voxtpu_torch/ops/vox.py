@@ -50,6 +50,49 @@ def _triangle_windows(mesh: Mesh, spec: GridSpec):
     return v0, v1, v2, start_y, start_z, w
 
 
+def _window_classes(wmax: int) -> list[int]:
+    """Window-class ladder 1,2,3,4,6,8,12,16,24,... (pow2 + 1.5*pow2),
+    covering [1, wmax] (`voxtpu/ops/vox.py:71-81`)."""
+    classes = [1, 2, 3]
+    c = 4
+    while classes[-1] < wmax:
+        classes += [c, c + c // 2]
+        c *= 2
+    return classes
+
+
+class FragmentPlan:
+    """Triangle buckets of one (mesh, grid) pair, host NumPy.
+
+    The container of voxtpu's `FragmentPlan` (`voxtpu/ops/vox.py:84`):
+    `spec`, `buckets` and `num_fragments`. `make_soft_plan` fills it;
+    each bucket is ``(W, None, None, None, start_y, start_z,
+    face_index)`` with int32 rows padded by `_pad_granular`, so that the
+    tests compare it with voxtpu's bucket for bucket."""
+
+    spec: GridSpec
+    buckets: list
+    num_fragments: int
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _pad_granular(count: int) -> int:
+    """Row padding at 1/8-octave granularity: <= 12.5% waste, few
+    distinct shapes (`voxtpu/ops/vox.py:130-135`)."""
+    gran = max(256, _next_pow2(count) // 8)
+    return -(-count // gran) * gran
+
+
+def _pad_rows(a: np.ndarray, rows: int, fill=0):
+    if a.shape[0] == rows:
+        return a
+    pad = np.full((rows - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
 def _edge_zy(py, pz, qy, qz, y, z):
     """Reference edge function `vplib/src/vox/vox.h:22-24` (float32).
 
