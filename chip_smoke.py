@@ -33,29 +33,41 @@ and no result line:
    same plan, and the coordinate gradient of soft_iou_loss through the
    fused and cuda engines on the card against the same engines on the
    CPU (the kernels' plain versions), each within 1e-3 x max|plain|.
+5b. The seg kernels at n=256 (the seg engine's floor) on the same kind
+   of icosphere: B9's family arrays and carry within 1e-4, B10 bitwise,
+   B11 within 1e-3 x max|plain| for a seeded random cotangent, and the
+   seg engine's coordinate gradient on the card against the CPU.
 6. Training path: `VoxelFit(engine="fused")` takes 5 Adam steps at
    512^3 on a torus brought to 1,348,128 faces and rotated; the target
    is its hard grid through the serving path (B1, B2 where the mesh has
    x-degenerate candidates); the start is shifted by half a voxel along
    x plus 0.1 voxel of seeded jitter; refresh_every=4 with a drift
    limit of half a voxel, so step 4 rebuilds the plan at full size.
-   Each step prints loss, grad norm, wall time and launch counts; the
-   first also holds B7 / B8 against their plain versions at full size
-   and times them (CUDA events, warm, median of 3). The loss must fall
-   and B1, B7, B8 launch (and B2 if the target routed candidates to it;
-   the rotated torus has no x-degenerate face, so it routes none). After
-   the last step all four training kernels are held again on the
-   refreshed plan, the densest of the path, within the same limits. Then
-   `VoxelFit(engine="cuda")` takes 2 steps from the same start on the
-   same plan: B13 fwd / bwd are held and timed as B7 / B8 were, and its
-   first loss must equal the fused engine's within 1e-4 relative.
-   The kernel table's launches are phase 4's for B1-B5 and this
-   phase's for B7, B8 and B13.
+   Each step prints loss, grad norm, wall time, peak memory and launch
+   counts; the first also holds B7 / B8 against their plain versions at
+   full size and times them (CUDA events, warm, median of 3). The loss
+   must fall and B1, B7, B8 launch (and B2 if the target routed
+   candidates to it; the rotated torus has no x-degenerate face, so it
+   routes none). After the last step all four training kernels are held
+   again on the refreshed plan, the densest of the path, within the
+   same limits. Then `VoxelFit(engine="seg")` runs the same 5 steps
+   from the same plan and start: B9 / B10 / B11 held and timed on step
+   1's inputs and held again on its refreshed plan, launches once per
+   step (B9 / B10 also for the final loss), its first loss the fused
+   engine's within 1e-4 relative, its warm step printed beside the
+   fused one. Then `VoxelFit(engine="cuda")` takes 2 steps from the
+   same start on the same plan: B13 fwd / bwd are held and timed as B7
+   / B8 were, and its first loss must equal the fused engine's within
+   1e-4 relative. The kernel table's launches are phase 4's for B1-B5
+   and this phase's for B7-B11 and B13.
 7. `python -m voxtpu_torch.examples.fit_vertices --n 64 --steps 10
    --engine fused` on an OBJ written here must exit 0 with an improved
    hard IoU.
 8. Prints each kernel's largest error as a share of its limit, the
-   kernel table as one JSON line, then the last line
+   card's name and power limit, the kernel table as one JSON line (each
+   kernel's launches, error, time, plain time and bound: the larger of
+   its bytes over the memory rate and its operations over their peak
+   rate, counted from this run's inputs; `bound`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of jax or voxtpu.
@@ -81,6 +93,29 @@ TRAIN_LR_VOX = 0.25     # Adam's learning rate, in voxels
 TAU = (0.5, 0.5)        # VoxelFit's default (tau_edge_frac, tau_x_frac)
 OCC_TOL = 1e-4          # occupancy, absolute
 GRAD_TOL = 1e-3         # cotangents and gradients, times max|plain|
+SEG_N = 256             # phase 5b's grid, the seg engine's floor
+
+# The least time the card could take for a kernel's work (`bound`): the
+# larger of its bytes over the memory rate and its operations over their
+# peak rate. NVIDIA H100 SXM at its 700 W limit: 3.35 TB/s, 67 TFLOP/s
+# float32 outside the tensor cores, and the special-function units
+# (expf's ex2, the reciprocal behind each IEEE division) at 16 results
+# per SM per clock (compute capability 9.0) x 132 SMs x 1.98 GHz.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+SFU_OP_S = 16 * 132 * 1.98e9
+# Operations (float32, special-function) of the soft kernels, counted
+# from the sources: a forward (slot, column) pair is the column centre
+# (3), (xh - cx) / tau_x, the sigmoid 1 / (1 + expf(-v)), w * sig and
+# its fixed-point scaling (6), with three special-function operations
+# (two divisions, one expf); a backward pair adds the cotangent's
+# products and the two running sums (5 more). A slot's fragment rebuild
+# is 3 edge sigmoids and the weight and x-hit (37, 9 special); the
+# chain rule to 13 cotangents 30 more (3 divisions).
+PAIR_FWD = (9, 3)
+PAIR_BWD = (14, 3)
+SLOT_FRAG = (37, 9)
+SLOT_CHAIN = (30, 3)
 
 
 class SmokeFailure(Exception):
@@ -118,6 +153,53 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def bound(nbytes: float, flops: float = 0.0, sfu: float = 0.0):
+    """(ms, "bytes" or "operations"): the least time for `nbytes` of
+    device memory traffic, `flops` float32 operations and `sfu`
+    special-function operations, and which of the two sets it."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(flops / F32_FLOP_S, sfu / SFU_OP_S)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def soft_bound(moved: int, slots: int, cols: int, backward: bool, rebuild: bool = True):
+    """The bound of a soft kernel: `moved` bytes, `slots` live slots
+    over `cols` columns each; `rebuild` (the fused and seg kernels)
+    adds each slot's fragment and, backward, its chain rule."""
+    pair = PAIR_BWD if backward else PAIR_FWD
+    per_slot = [(f + (c if backward else 0)) * rebuild
+                for f, c in zip(SLOT_FRAG, SLOT_CHAIN)]
+    pairs = slots * cols
+    return bound(moved, pairs * pair[0] + slots * per_slot[0],
+                 pairs * pair[1] + slots * per_slot[1])
+
+
+def live_slots(cells) -> int:
+    return int((cells >= 0).sum())
+
+
+def flood_flops(seed, k: int) -> int:
+    """Float32 operations of one flood step (B3) on `seed` at stride k:
+    each voxel's coordinates (6), and the squared distance (14) of its
+    own seed and of each in-grid candidate that holds a seed (the
+    kernel skips the rest)."""
+    n = seed.shape[0]
+    valid = seed >= 0
+    count = int(valid.sum())
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dz or dy or dx:
+                    box = tuple(slice(max(0, d * k), n + min(0, d * k))
+                                for d in (dz, dy, dx))
+                    count += int(valid[box].sum())
+    return 6 * n ** 3 + 14 * count
 
 
 def int_err(a, b) -> int:
@@ -190,7 +272,8 @@ def loss_cotangent(occ, target):
 def hold_fused(fp, tables, g, errs, what: str):
     """B7 and B8 against their plain versions on one plan's tables and
     cotangent `g` (a tensor, or a function of B7's occupancy). Returns
-    the four calls for timing: (B7, B7 plain, B8, B8 plain)."""
+    the four calls for timing, (B7, B7 plain, B8, B8 plain), and the
+    two kernels' bounds on these inputs."""
     import torch
 
     from voxtpu_torch.ops import soft_vox_fused as F
@@ -209,16 +292,19 @@ def hold_fused(fp, tables, g, errs, what: str):
     e8 = hold(errs, "B8", dtab, want, GRAD_TOL * top, f"B8 {what}")
     print(f"B7 {what}: max_abs_err {e7:.3e} (limit {OCC_TOL:.0e}); B8: {e8:.3e} "
           f"(max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
+    slots, n = live_slots(fp.cells_d), fp.spec.n
+    bounds = {"B7": soft_bound(nbytes(*args, fp.run_start_d, occ), slots, n, False),
+              "B8": soft_bound(nbytes(*args, g, dtab), slots, n, True)}
     return (lambda: F.fused_fwd(*args, fp.run_start_d, **kw),
             lambda: F.fused_fwd_plain(*args, **kw),
             lambda: F.fused_bwd(*args, g, **kw),
-            lambda: F.fused_bwd_plain(*args, g, **kw))
+            lambda: F.fused_bwd_plain(*args, g, **kw)), bounds
 
 
 def hold_fragment(cp, coords, g, errs, what: str):
     """B13 fwd and bwd against their plain versions on the per-fragment
     engine's slots of `coords`; `g` as in `hold_fused`. Returns the four
-    calls for timing."""
+    calls for timing and the two kernels' bounds."""
     import torch
 
     from voxtpu_torch.ops import soft_vox, soft_vox_cuda as C
@@ -237,17 +323,23 @@ def hold_fragment(cp, coords, g, errs, what: str):
     ef = hold(errs, "B13f", occ, want, OCC_TOL, f"B13 fwd {what}")
     g = g(occ) if callable(g) else g
     bwd = []
-    for name, got, want in zip(("dw", "dx_hit"), C.fragment_bwd(*args, g, **kw),
+    grads = C.fragment_bwd(*args, g, **kw)
+    for name, got, want in zip(("dw", "dx_hit"), grads,
                                C.fragment_bwd_plain(*args, g, **kw)):
         top = float(want.abs().max())
         err = hold(errs, "B13b", got, want, GRAD_TOL * top, f"B13 bwd {name} {what}")
         bwd.append(f"{name} {err:.3e} (max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
     print(f"B13 fwd {what}: max_abs_err {ef:.3e} (limit {OCC_TOL:.0e}); B13 bwd: "
           + "; ".join(bwd))
+    slots = live_slots(cp.cells_d)
+    bounds = {"B13f": soft_bound(nbytes(*args, cp.run_start_d, occ), slots, spec.n,
+                                 False, rebuild=False),
+              "B13b": soft_bound(nbytes(*args, g, *grads), slots, spec.n, True,
+                                 rebuild=False)}
     return (lambda: C.fragment_fwd(*args, cp.run_start_d, **kw),
             lambda: C.fragment_fwd_plain(*args, **kw),
             lambda: C.fragment_bwd(*args, g, **kw),
-            lambda: C.fragment_bwd_plain(*args, g, **kw))
+            lambda: C.fragment_bwd_plain(*args, g, **kw)), bounds
 
 
 def soft_case(n: int, level: int = 4):
@@ -339,12 +431,206 @@ def rotated_torus(faces: int):
     return Mesh(name="torus", coords=c, faces=f, faces_normals=f)
 
 
-def training_path(dev, errs, timings, n: int = MAIN_N, faces: int = MAIN_FACES):
+def fit_steps(fit, state, what: str, counted):
+    """TRAIN_STEPS Adam steps of `fit`, each printed with its loss, wall
+    time, peak device memory and the launch counts of `counted` (name ->
+    wrapper). Returns (state, losses, walls, final loss)."""
+    import numpy as np
+    import torch
+
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = fit.step(state)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        require(np.isfinite(loss) and np.isfinite(gnorm), f"{what} step {i + 1}: non-finite")
+        losses.append(loss)
+        print(f"{what} step {i + 1}: loss {loss:.6f}, grad norm {gnorm:.6g}, drift "
+              f"{float(m['max_drift_vox']):.3f} vox, wall {walls[-1]:.3f} s, refreshes "
+              f"{fit.refresh_count}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB; launches " + " ".join(f"{k} {fn.launches}" for k, fn in counted.items()))
+    with torch.no_grad():
+        final = float(fit.loss(state.coords))
+    print(f"{what}: loss {losses[0]:.6f} before the first step, {final:.6f} after the last")
+    require(final < losses[0], f"the {what} fit's loss did not fall")
+    require(fit.refresh_count == 1, f"{what}: {fit.refresh_count} plan refreshes, expected 1")
+    return state, losses, walls, final
+
+
+def warm_step(walls) -> float:
+    """The median wall of steps 2, 3 and 5: after the first step's
+    one-time set-up, without step 4's plan refresh."""
+    return sorted(walls[i] for i in (1, 2, 4))[1]
+
+
+def hold_seg(plan, tables, g, errs, what: str):
+    """B9, B10 and B11 against their plain versions on one seg plan's
+    tables and cotangent `g` (a tensor, or a function of B10's
+    occupancy): B9's three arrays within OCC_TOL, B10 bitwise, B11
+    within GRAD_TOL x max|plain|. Returns the six calls for timing (B9,
+    B9 plain, B10, B10 plain, B11, B11 plain) and the kernels' bounds."""
+    import torch
+
+    from voxtpu_torch.ops import soft_vox_seg as S
+
+    args = (tables, plan.cells_d, plan.tblidx_d, plan.batch_tile_d, plan.batch_panel_d)
+    kw = dict(n=plan.spec.n, tc=plan.tc, tz=plan.tz)
+    prm = plan.prm(*TAU)
+    parts = S.seg_fwd(*args, plan.run_start_d, prm=prm, **kw)
+    want = S.seg_fwd_plain(*args, prm=prm, **kw)
+    require(all(bool(torch.isfinite(p).all()) for p in parts), f"B9 {what}: non-finite")
+    e9 = max(hold(errs, "B9", got, ref, OCC_TOL, f"B9 {what} {name}")
+             for name, got, ref in zip(("out_a", "out_b", "carry"), parts, want))
+    del want
+    occ = S.seg_combine(*parts, **kw)
+    ref = S.seg_combine_plain(*parts, **kw)
+    errs["B10"] = max(errs.get("B10", 0.0), float_err(occ, ref))
+    require(bitwise_equal(occ, ref), f"B10 {what}: differs from its plain version")
+    require(float(ref.max()) > 0.5, f"B10 {what}: the plain occupancy is empty")
+    del ref
+    g = g(occ) if callable(g) else g
+    gpre = S.seg_gpre(g)
+    dtab = S.seg_bwd(*args, g, gpre, prm=prm, **kw)
+    want = S.seg_bwd_plain(*args, g, gpre, prm=prm, **kw)
+    top = float(want.abs().max())
+    e11 = hold(errs, "B11", dtab, want, GRAD_TOL * top, f"B11 {what}")
+    print(f"B9 {what}: max_abs_err {e9:.3e} (limit {OCC_TOL:.0e}); B10 bitwise equal; "
+          f"B11 {e11:.3e} (max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
+    slots, n = live_slots(plan.cells_d), plan.spec.n
+    bounds = {"B9": soft_bound(nbytes(*args, plan.run_start_d, *parts), slots, S.PANEL,
+                               False),
+              "B10": bound(nbytes(*parts, occ), 2 * n ** 3),
+              "B11": soft_bound(nbytes(*args, g, gpre, dtab), slots, S.PANEL, True)}
+    return (lambda: S.seg_fwd(*args, plan.run_start_d, prm=prm, **kw),
+            lambda: S.seg_fwd_plain(*args, prm=prm, **kw),
+            lambda: S.seg_combine(*parts, **kw),
+            lambda: S.seg_combine_plain(*parts, **kw),
+            lambda: S.seg_bwd(*args, g, gpre, prm=prm, **kw),
+            lambda: S.seg_bwd_plain(*args, g, gpre, prm=prm, **kw)), bounds
+
+
+def check_seg_kernels(dev, errs, n: int = SEG_N) -> None:
+    """Phase 5b: B9, B10, B11 against their plain versions at n (the seg
+    engine's floor) on `soft_case(n)` with a seeded random cotangent,
+    and the seg engine's coordinate gradient of soft_iou_loss on the
+    card against the same engine on the CPU."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.models.fit import soft_iou_loss
+    from voxtpu_torch.ops.soft_vox_fused import tables_of
+    from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan, soft_voxelize_seg
+    from voxtpu_torch.ops.vox import voxelize
+
+    mesh, sp = soft_case(n)
+    coords = torch.from_numpy(mesh.coords).to(dev)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal((n, n, n)).astype(
+        np.float32)).to(dev)
+    t0 = time.perf_counter()
+    plan = SegSoftPlan(sp, mesh.coords, dev)
+    print(f"n={n}: {len(mesh.faces)} faces; SegSoftPlan {time.perf_counter() - t0:.2f} s, "
+          f"{plan.num_fragments} slots in {plan.num_batches} batches, {plan.num_runs} "
+          f"(tile, panel) runs, {plan.num_pairs} table rows")
+    with torch.no_grad():
+        tables = tables_of(coords, plan)
+    hold_seg(plan, tables, g, errs, f"n={n}")
+
+    target = voxelize(mesh, sp.spec, "cuda", device=dev).to_dense().float()
+    cpu = torch.device("cpu")
+
+    def coord_grad(p, device):
+        x = coords.to(device).clone().requires_grad_(True)
+        soft_iou_loss(soft_voxelize_seg(x, p, tau_edge_frac=TAU[0], tau_x_frac=TAU[1]),
+                      target.to(device)).backward()
+        return x.grad.to(dev)
+
+    want = coord_grad(SegSoftPlan(sp, mesh.coords, cpu), cpu)
+    scale = float(want.abs().max())
+    require(scale > 0, "the seg engine's coordinate gradient is zero")
+    err = float_err(coord_grad(plan, dev), want)
+    require(err <= GRAD_TOL * scale, f"seg engine's coordinate gradient: {err:.3e} > "
+            f"{GRAD_TOL} x {scale:.3e}")
+    print(f"coordinate gradient of soft_iou_loss, seg engine: kernels vs plain versions "
+          f"max_abs_err {err:.3e} (max |plain| {scale:.3e})")
+
+
+def seg_fit(dev, errs, timings, bounds, plan, start, target, fused_loss0: float):
+    """Phase 6's seg run: VoxelFit(engine="seg") from the fused run's
+    plan and start for TRAIN_STEPS steps (step 4 refreshes); B9-B11
+    held and timed on step 1's inputs and held again on the refreshed
+    plan. Returns (launch counts, walls)."""
+    import torch
+
+    from voxtpu_torch.models.fit import VoxelFit
+    from voxtpu_torch.ops import soft_vox_seg
+    from voxtpu_torch.ops.soft_vox_fused import tables_of
+
+    counted = {"B9": soft_vox_seg.seg_fwd, "B10": soft_vox_seg.seg_combine,
+               "B11": soft_vox_seg.seg_bwd}
+    every = tuple(counted.values())
+    for fn in every:
+        fn.launches = 0
+    n, vs = plan.spec.n, plan.spec.voxel_size
+    t0 = time.perf_counter()
+    fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine="seg",
+                   refresh_every=4, drift_limit_frac=0.25)
+    sg = fit.engine_plan
+    print(f"SegSoftPlan {time.perf_counter() - t0:.1f} s: {sg.num_fragments:,} slots in "
+          f"{sg.num_batches:,} batches of {sg.cells_b[0].size}, {sg.num_runs:,} (tile, "
+          f"panel) runs, {sg.num_pairs:,} table rows")
+    state = fit.init(start)
+    with uncounted(*every):
+        with torch.no_grad():
+            tables = tables_of(state.coords, sg)
+        calls, b = hold_seg(sg, tables, lambda occ: loss_cotangent(occ, target), errs,
+                            f"{n}^3")
+        bounds.update(b)
+        for key, i in (("B9", 0), ("B10", 2), ("B11", 4)):
+            timings[key] = (cuda_ms(calls[i], reps=3), cuda_ms(calls[i + 1], reps=3))
+            print(f"{key} at {n}^3: kernel {timings[key][0]:.3f} ms, plain "
+                  f"{timings[key][1]:.3f} ms, bound {bounds[key][0]:.3f} ms "
+                  f"({bounds[key][1]})")
+        del tables, calls
+        torch.cuda.empty_cache()
+
+    state, losses, walls, _ = fit_steps(fit, state, "seg", counted)
+    limit = max(soft_vox_seg.MARGIN - 17 * TAU[1] - 4, 0)
+    print(f"seg: x_hit drift bound one step after the refresh "
+          f"{fit.engine_plan.xhit_drift_vox(state.coords):.3f} voxels (refresh limit "
+          f"{limit:.1f}, read every 4 steps)")
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"seg launches {launches}")
+    require(launches["B9"] == launches["B10"] == TRAIN_STEPS + 1
+            and launches["B11"] == TRAIN_STEPS,
+            "B9 / B10 once per step and for the final loss, B11 once per step")
+    require(abs(losses[0] - fused_loss0) <= 1e-4 * fused_loss0,
+            f"the seg engine's first loss {losses[0]:.6f} differs from the fused "
+            f"engine's {fused_loss0:.6f}")
+    print(f"seg first loss {losses[0]:.6f}, fused {fused_loss0:.6f}: relative "
+          f"{abs(losses[0] - fused_loss0) / fused_loss0:.3e}")
+
+    # The refreshed plan (step 4), at the last coordinates.
+    rp = fit.engine_plan
+    print(f"refreshed SegSoftPlan: {rp.num_fragments:,} slots in {rp.num_batches:,} "
+          f"batches, {rp.num_runs:,} runs")
+    with uncounted(*every):
+        with torch.no_grad():
+            tables = tables_of(state.coords, rp)
+        hold_seg(rp, tables, lambda occ: loss_cotangent(occ, target), errs,
+                 f"{n}^3 refreshed")
+    return launches, walls
+
+
+def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN_FACES):
     """Phase 6: VoxelFit(engine="fused") at n on a rotated torus of
     `faces` faces for TRAIN_STEPS Adam steps (one plan refresh), then
-    VoxelFit(engine="cuda") for CUDA_STEPS steps from the same start.
-    Returns the launch counts of the two runs (B1 and B2 for the target,
-    B7 and B8 for the fused fit, B13 for the other)."""
+    VoxelFit(engine="seg") and VoxelFit(engine="cuda") (CUDA_STEPS
+    steps) from the same start on the same plan. Returns the launch
+    counts of the runs (B1 and B2 for the target, B7 and B8 for the
+    fused fit, B9-B11 for the seg fit, B13 for the cuda one)."""
     import numpy as np
     import torch
 
@@ -401,38 +687,21 @@ def training_path(dev, errs, timings, n: int = MAIN_N, faces: int = MAIN_FACES):
     with uncounted(*every):
         with torch.no_grad():
             tables = tables_of(state.coords, fp)
-        calls = hold_fused(fp, tables, lambda occ: loss_cotangent(occ, target), errs,
-                           f"{n}^3")
+        calls, b = hold_fused(fp, tables, lambda occ: loss_cotangent(occ, target), errs,
+                              f"{n}^3")
+        bounds.update(b)
         timings["B7"] = (cuda_ms(calls[0], reps=3), cuda_ms(calls[1], reps=3))
         timings["B8"] = (cuda_ms(calls[2], reps=3), cuda_ms(calls[3], reps=3))
         del tables, calls
     for key in ("B7", "B8"):
         print(f"{key} at {n}^3: kernel {timings[key][0]:.3f} ms, plain "
-              f"{timings[key][1]:.3f} ms")
+              f"{timings[key][1]:.3f} ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
 
-    losses = []
-    for i in range(TRAIN_STEPS):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, m = fit.step(state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        require(np.isfinite(loss) and np.isfinite(gnorm), f"step {i + 1}: non-finite")
-        losses.append(loss)
-        print(f"step {i + 1}: loss {loss:.6f}, grad norm {gnorm:.6g}, drift "
-              f"{float(m['max_drift_vox']):.3f} vox, wall {wall:.3f} s, refreshes "
-              f"{fit.refresh_count}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-              f"GiB; launches B1 {B1.launches} B2 {B2.launches} B7 {B7.launches} "
-              f"B8 {B8.launches}")
-    with torch.no_grad():
-        final = float(fit.loss(state.coords))
+    state, losses, fused_walls, _ = fit_steps(
+        fit, state, "fused", {"B1": B1, "B2": B2, "B7": B7, "B8": B8})
     launches = {"B1": B1.launches, "B2": B2.launches, "B7": B7.launches,
                 "B8": B8.launches}
-    print(f"loss {losses[0]:.6f} before the first step, {final:.6f} after the last; "
-          f"launches {launches}")
-    require(final < losses[0], "the fused fit's loss did not fall")
-    require(fit.refresh_count == 1, f"{fit.refresh_count} plan refreshes, expected 1")
+    print(f"fused launches {launches}")
     for key in ("B1", "B7", "B8") + (("B2",) if pipe.num_wide else ()):
         require(launches[key] > 0, f"the training path never launched {key}")
     require(launches["B7"] == TRAIN_STEPS + 1 and launches["B8"] == TRAIN_STEPS,
@@ -453,8 +722,16 @@ def training_path(dev, errs, timings, n: int = MAIN_N, faces: int = MAIN_FACES):
               f"{time.perf_counter() - t0:.1f} s)")
         hold_fragment(rp, state.coords, lambda occ: loss_cotangent(occ, target), errs,
                       f"{n}^3 refreshed")
-        del rp
+        del rp, fit, fp, state
         torch.cuda.empty_cache()
+
+    # The seg engine from the same start on the same plan.
+    seg_launches, seg_walls = seg_fit(dev, errs, timings, bounds, plan, start, target,
+                                      losses[0])
+    launches.update(seg_launches)
+    torch.cuda.empty_cache()
+    print(f"warm step (median of steps 2, 3, 5) at {n}^3: seg {warm_step(seg_walls):.4f} "
+          f"s, fused {warm_step(fused_walls):.4f} s")
 
     # The per-fragment engine (B13) from the same start on the same
     # plan: B13 held and timed at the shapes B7 / B8 were, then its own
@@ -469,14 +746,15 @@ def training_path(dev, errs, timings, n: int = MAIN_N, faces: int = MAIN_FACES):
           f"fragment slots in {cp.num_batches:,} batches)")
     cstate = cfit.init(start)
     with uncounted(*every):
-        calls = hold_fragment(cp, cstate.coords, lambda occ: loss_cotangent(occ, target),
-                              errs, f"{n}^3")
+        calls, b = hold_fragment(cp, cstate.coords,
+                                 lambda occ: loss_cotangent(occ, target), errs, f"{n}^3")
+        bounds.update(b)
         timings["B13f"] = (cuda_ms(calls[0], reps=3), cuda_ms(calls[1], reps=3))
         timings["B13b"] = (cuda_ms(calls[2], reps=3), cuda_ms(calls[3], reps=3))
         del calls
     for key, name in (("B13f", "B13 fwd"), ("B13b", "B13 bwd")):
         print(f"{name} at {n}^3: kernel {timings[key][0]:.3f} ms, plain "
-              f"{timings[key][1]:.3f} ms")
+              f"{timings[key][1]:.3f} ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
     closs = []
     for i in range(CUDA_STEPS):
         t0 = time.perf_counter()
@@ -757,8 +1035,18 @@ def run() -> int:
             "B5": (cuda_ms(lambda: B5(final_seed, occ, org)),
                    cuda_ms(lambda: jfa_cuda.sdf_from_seed_plain(final_seed, occ, org))),
         }
+        n3 = MAIN_N ** 3
+        bounds = {
+            "B1": bound(nbytes(lk, xs, st.batch_tile, st.batch_basew) + n3 // 8),
+            "B2": bound(nbytes(wk, wxs, w_ctile) + w_uidx.shape[0] * p0.tc * MAIN_N // 8),
+            "B3": bound(nbytes(seed0, org) + 4 * n3,
+                        sum(flood_flops(si, ki) for si, ki in seeds) / len(seeds)),
+            "B5": bound(nbytes(final_seed, occ, org) + 4 * n3,
+                        7 * n3 + 14 * int((final_seed >= 0).sum())),
+        }
         for name, (ms, plain_ms) in timings.items():
-            print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
         g = torch.Generator().manual_seed(11)
         live_k = torch.randint(0, p0.tc, tuple(wk.shape), generator=g,
                                dtype=torch.int32).to(dev)
@@ -785,11 +1073,14 @@ def run() -> int:
     # ---- 5. training kernels vs plain ------------------------------------------
     phase(f"5. training kernels against their plain versions (n={KERNEL_N})")
     check_training_kernels(dev, errs)
+    phase(f"5b. seg kernels against their plain versions (n={SEG_N})")
+    check_seg_kernels(dev, errs)
 
     # ---- 6. training path --------------------------------------------------------
     phase(f"6. training path: VoxelFit at {MAIN_N}^3 on {MAIN_FACES:,} faces")
-    train = training_path(dev, errs, timings)
-    launches.update({k: train[k] for k in ("B7", "B8", "B13f", "B13b")})
+    train = training_path(dev, errs, timings, bounds)
+    launches.update({k: train[k]
+                     for k in ("B7", "B8", "B9", "B10", "B11", "B13f", "B13b")})
 
     # ---- 7. the fitting example --------------------------------------------------
     phase("7. examples.fit_vertices on the card")
@@ -798,6 +1089,7 @@ def run() -> int:
     # ---- 8. result lines ------------------------------------------------------
     phase("8. result")
     soft = "voxtpu_torch/csrc/soft_vox.cu"
+    seg = "voxtpu_torch/csrc/soft_vox_seg.cu"
     table = [
         ("B1", "B1 banded_fill", "voxtpu_torch/csrc/vox_fill.cu",
          "voxtpu/ops/vox_slots_banded.py:118"),
@@ -809,15 +1101,24 @@ def run() -> int:
          "voxtpu/ops/jfa_pallas.py:442"),
         ("B7", "B7 fused_fwd", soft, "voxtpu/ops/soft_vox_fused.py:209"),
         ("B8", "B8 fused_bwd", soft, "voxtpu/ops/soft_vox_fused.py:284"),
+        ("B9", "B9 seg_fwd", seg, "voxtpu/ops/soft_vox_seg.py:89"),
+        ("B10", "B10 seg_combine", seg, "voxtpu/ops/soft_vox_seg.py:313"),
+        ("B11", "B11 seg_bwd", seg, "voxtpu/ops/soft_vox_seg.py:169"),
         ("B13f", "B13 fragment_fwd", soft, "voxtpu/ops/soft_vox_pallas.py:49"),
         ("B13b", "B13 fragment_bwd", soft, "voxtpu/ops/soft_vox_pallas.py:88"),
     ]
+    # library_ms: no single PyTorch call computes a parity fill, a
+    # 26-candidate flood step, a seeded distance, a per-slot sigmoid
+    # profile or its cotangents, or the seg combine's gather.
     kernels = []
     for key, name, source, replaces in table:
         ms, plain_ms = timings[key]
+        bound_ms, bound_by = bounds[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
     print("largest max_abs_err / limit of any check: " + ", ".join(
         f"{name} {errs[key, '/tol']:.3f}" for key, name, _, _ in table
         if (key, "/tol") in errs))

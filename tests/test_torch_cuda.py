@@ -15,9 +15,10 @@ from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.models.fit import VoxelFit, soft_iou_loss
 from voxtpu_torch.ops import (jfa_cuda, soft_vox, soft_vox_cuda, soft_vox_fused,
-                              vox_cuda, vox_slots_banded)
+                              soft_vox_seg, vox_cuda, vox_slots_banded)
 from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
 from voxtpu_torch.ops.reference import jfa_ref, voxelize_ref
+from voxtpu_torch.ops.vox import voxelize
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +229,49 @@ def test_forward_sums_do_not_depend_on_order(dev):
         assert bool(torch.isnan(occ[0, 5]).all())
         occ[0, 5] = 0.0
         assert bool(torch.isfinite(occ).all())
+
+
+# Seg engine: B9 within 1e-4 (fixed-point sums against float64 ones),
+# B10 bitwise (adds only, in the plain version's association), B11
+# within 1e-3 x max|plain| (warp sums against torch's).
+@pytest.mark.parametrize("n", [256, 384])
+def test_seg_kernels_match_plain(dev, n):
+    c, sp, g = _soft_case(n)
+    plan = soft_vox_seg.SegSoftPlan(sp, c, dev)
+    prm = plan.prm(0.5, 0.5)
+    tables = soft_vox_fused.tables_of(torch.from_numpy(c).to(dev), plan).detach()
+    args = (tables, plan.cells_d, plan.tblidx_d, plan.batch_tile_d, plan.batch_panel_d)
+    kw = dict(n=n, tc=plan.tc, tz=plan.tz)
+    counts = [f.launches for f in (soft_vox_seg.seg_fwd, soft_vox_seg.seg_combine,
+                                   soft_vox_seg.seg_bwd)]
+    parts = soft_vox_seg.seg_fwd(*args, plan.run_start_d, prm=prm, **kw)
+    want = soft_vox_seg.seg_fwd_plain(*args, prm=prm, **kw)
+    torch.cuda.synchronize()
+    for got, ref in zip(parts, want):
+        assert _max_err(got, ref) <= 1e-4
+    occ = soft_vox_seg.seg_combine(*parts, **kw)
+    ref = soft_vox_seg.seg_combine_plain(*parts, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(occ.view(torch.int32), ref.view(torch.int32))
+    assert float(ref.max()) > 0.5
+    g = g.to(dev)
+    gpre = soft_vox_seg.seg_gpre(g)
+    got = soft_vox_seg.seg_bwd(*args, g, gpre, prm=prm, **kw)
+    want = soft_vox_seg.seg_bwd_plain(*args, g, gpre, prm=prm, **kw)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 1e-3 * float(want.abs().max())
+    assert [f.launches for f in (soft_vox_seg.seg_fwd, soft_vox_seg.seg_combine,
+                                 soft_vox_seg.seg_bwd)] == [k + 1 for k in counts]
+
+
+def test_seg_engine_gradient_on_the_card_matches_the_cpu(dev):
+    c, sp, _ = _soft_case(256)
+    mesh = Mesh(coords=c, faces=sp.faces_array, faces_normals=sp.faces_array)
+    target = voxelize(mesh, sp.spec, "cuda", device=dev).to_dense().float()
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        fit = VoxelFit(sp, target.to(device), engine="seg", refresh_every=0)
+        x = torch.from_numpy(c).to(device).requires_grad_(True)
+        fit._loss_fn(fit._fwd(x), fit.target).backward()
+        grads.append(x.grad.cpu())
+    assert _max_err(*grads) <= 1e-3 * float(grads[1].abs().max())

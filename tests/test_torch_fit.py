@@ -26,7 +26,7 @@ from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.models.csg_fit import CSGFit, CSGPart
-from voxtpu_torch.models.fit import VoxelFit, soft_iou_loss
+from voxtpu_torch.models.fit import VoxelFit, auto_engine, soft_iou_loss
 from voxtpu_torch.ops.reference import voxelize_ref
 from voxtpu_torch.ops.soft_vox import make_soft_plan
 
@@ -34,6 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {**os.environ, "PYTHONPATH": REPO}
 N = 32
 LR = 5e-3
+AUTO_512 = "seg"  # "auto"'s engine on a card for 256 <= n <= 512
 
 
 def _meshes(coords, faces):
@@ -177,10 +178,16 @@ def test_engine_choice():
     plan = make_soft_plan(Mesh(coords=c, faces=f, faces_normals=f), spec)
     target = torch.zeros((16, 16, 16))
     assert VoxelFit(plan, target).engine == "plain"
-    with pytest.raises(NotImplementedError, match="seg engine"):
+    # The seg engine's plan refuses n below 256 (the panels must be
+    # narrower than the grid).
+    with pytest.raises(ValueError, match="segmented engine needs n >= 256"):
         VoxelFit(plan, target, engine="seg")
     with pytest.raises(ValueError, match="unknown engine"):
         VoxelFit(plan, target, engine="xla")
+    cuda = torch.device("cuda")
+    assert [auto_engine(n, cuda) for n in (128, 256, 320, 512, 1024)] == [
+        "fused", AUTO_512, "fused", AUTO_512, "fused"]
+    assert auto_engine(512, "cpu") == "plain"
 
 
 def test_csgfit_matches_voxtpu_and_descends():
@@ -240,6 +247,30 @@ def test_examples_refuse_unpacked_n_on_a_card(module, capsys):
         main(["--n", "48", "--steps", "1", "--device", "cuda"])
     assert exc.value.code == 2
     assert "multiple of 32" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("module", ["fit_vertices", "csg_fit_parts"])
+def test_examples_refuse_to_run_without_a_card(module, capsys):
+    """The examples run on the card unless --device cpu asks for the
+    CPU: without a card they exit and say so, never falling back."""
+    import importlib
+
+    assert not torch.cuda.is_available()
+    main = importlib.import_module(f"voxtpu_torch.examples.{module}").main
+    with pytest.raises(SystemExit) as exc:
+        main(["--n", "32", "--steps", "1"])
+    assert exc.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("n", [128, 320])
+def test_fit_vertices_seg_needs_n_256(n, capsys):
+    from voxtpu_torch.examples.fit_vertices import main
+
+    with pytest.raises(SystemExit) as exc:
+        main(["--n", str(n), "--engine", "seg", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "--engine seg needs --n >= 256" in capsys.readouterr().err
 
 
 def test_hard_occupancy_has_no_host_route_on_a_card():

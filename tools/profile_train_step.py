@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of one VoxelFit step goes, on one CUDA card.
 
-    python3 tools/profile_train_step.py     # from the repository root
+    python3 tools/profile_train_step.py [fused] [seg]   # from the repository root
 
 The training path of `chip_smoke.py` (phase 6): a torus brought to
 1,348,128 faces and rotated, its hard grid at 512^3 as the target, the
 start shifted by half a voxel along x plus 0.1 voxel of jitter,
-`make_soft_plan(pad_window=2)`, `VoxelFit(engine="fused")` with Adam at
-a quarter of a voxel. Prints the card's name, power limit and clocks;
-the host time of the plan build (`make_soft_plan`, `FusedSoftPlan`);
-the wall time of 5 warm steps (host clock around a synchronize); the
-peak device memory of a step; a `torch.profiler` table of one step; and
-the device's busy time and idle share of that step's wall time.
+`make_soft_plan(pad_window=2)`, `VoxelFit(engine=...)` with Adam at a
+quarter of a voxel, for each engine named (default: fused, then seg).
+Prints the card's name, power limit and clocks; per engine the host
+time of its plan build (`FusedSoftPlan` or `SegSoftPlan`); the wall
+time of 5 warm steps (host clock around a synchronize); the peak device
+memory of a step; a `torch.profiler` table of one step; and the
+device's busy time and idle share of that step's wall time.
 """
 
 from __future__ import annotations
@@ -34,14 +35,13 @@ from voxtpu_torch.grids.voxel_grid import GridSpec  # noqa: E402
 from voxtpu_torch.mesh.mesh import Mesh  # noqa: E402
 from voxtpu_torch.models.fit import VoxelFit  # noqa: E402
 from voxtpu_torch.ops.soft_vox import make_soft_plan  # noqa: E402
-from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan  # noqa: E402
 from voxtpu_torch.ops.vox import voxelize  # noqa: E402
 
 N = 512
 FACES = 1_348_128
 
 
-def main() -> int:
+def main(engines) -> int:
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device is available", file=sys.stderr)
         return 2
@@ -61,16 +61,22 @@ def main() -> int:
     t0 = time.perf_counter()
     plan = make_soft_plan(Mesh(name="start", coords=start, faces=mesh.faces,
                                faces_normals=mesh.faces), spec, pad_window=2)
-    t1 = time.perf_counter()
-    fp = FusedSoftPlan(plan, dev)
-    t2 = time.perf_counter()
-    print(f"host plan: make_soft_plan {t1 - t0:.3f} s, FusedSoftPlan {t2 - t1:.3f} s; "
-          f"{fp.num_fragments} slots in {fp.num_batches} batches, {fp.num_pairs} "
-          f"table rows, {len(mesh.coords)} vertices")
-    del fp
+    print(f"host plan: make_soft_plan {time.perf_counter() - t0:.3f} s; "
+          f"{len(mesh.coords)} vertices")
+    for engine in engines:
+        profile_engine(engine, plan, target, start, vs)
+        torch.cuda.empty_cache()
+    return 0
 
-    fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine="fused",
+
+def profile_engine(engine: str, plan, target, start, vs) -> None:
+    t0 = time.perf_counter()
+    fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine=engine,
                    refresh_every=0)
+    ep = fit.engine_plan
+    print(f"\n== engine {engine}: {type(ep).__name__} {time.perf_counter() - t0:.3f} s "
+          f"(with its device copies); {ep.num_fragments} slots in {ep.num_batches} "
+          f"batches, {ep.num_pairs} table rows")
     state = fit.init(start)
 
     def step():
@@ -97,8 +103,7 @@ def main() -> int:
     busy = busy_us(events) / 1e3
     print(f"device events {len(events)}; profiled step wall {wall:.3f} ms; device busy "
           f"{busy:.3f} ms; idle share of wall {1 - busy / wall:.4f}")
-    return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:] or ["fused", "seg"]))

@@ -52,6 +52,16 @@ SIGNATURES = {
     # wb, xb, cells, batch_tile, g, num_batches, tb, n, tc, num_tiles,
     # ox, vs, tau_x, dw, dx, stream
     "vt_fragment_bwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P, _P, _P],
+    # tables, cells, tblidx, batch_tile, batch_panel, run_start, num_runs,
+    # tb, tbl, n, tc, tz, num_tiles, ox, oy, oz, vs, tau_e, tau_x, out_a,
+    # out_b, carry, stream
+    "vt_seg_fwd": [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P] * 4,
+    # out_a, out_b, pre, n, tc, tz, out, stream
+    "vt_seg_combine": [_P] * 3 + [_I] * 3 + [_P, _P],
+    # tables, cells, tblidx, batch_tile, batch_panel, g, gpre, num_batches,
+    # tb, tbl, n, tc, tz, num_tiles, ox, oy, oz, vs, tau_e, tau_x, dtab,
+    # stream
+    "vt_seg_bwd": [_P] * 7 + [_I] * 7 + [_F] * 6 + [_P, _P],
     # local, xs, batch_tile, batch_basew, B, tb, tc, nw, bwords, num_tiles,
     # out, stream
     "vt_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],

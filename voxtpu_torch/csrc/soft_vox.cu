@@ -46,68 +46,19 @@
 // coefficient, x-hit and chain-rule arithmetic is spelled in voxtpu's
 // order, so every operation rounds on its own.
 
-#include <cuda_runtime.h>
+#include "soft_common.cuh"
 
 namespace {
 
 constexpr int kXC = 64;     // columns per forward block
 constexpr int kLanes = 4;   // slot lanes per forward block (kXC x kLanes threads)
-// Forward terms in units of 2^-40: |w * sig| <= 1 (w is a coverage
-// times a facing sign), so a 64-bit sum holds 2^23 terms, and rounding a
-// term costs at most 2^-41. A term that is not in [-1, 1] (NaN, inf) has
-// no fixed-point value: it marks its cell and column, which read NaN.
-constexpr float kFix = 0x1p40f;
-constexpr float kUnfix = 0x1p-40f;
-constexpr int kNattr = 16;  // coefficient table row width
-constexpr int kNgrad = 13;  // coefficient cotangents per slot
 constexpr int kBwdThreads = 256;
 
-__host__ __device__ constexpr int bad_words(int tc) { return (tc + 31) / 32; }
-
-struct Geom {
-  float ox, oy, oz, vs, tau_e, tau_x;
-  int n, tc;
-};
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// Cell-centre coordinate o + (i * vs + vs * 0.5).
-__device__ __forceinline__ float center(float o, int i, float vs) {
-  return o + ((float)i * vs + vs * 0.5f);
-}
-
-// A fused slot's fragment, rebuilt from its triangle's table row `at`
-// (layout: (u, v, w) of the three edges, P, Q, R, wmul) and its global
-// cell (z * n + y); `_fused_fwd_kernel` lines 257-261.
-struct Frag {
-  float cy, cz, s0, s1, s2, cov, w, xh;
-};
-
+// A fused slot's fragment from its global cell (z * n + y).
 __device__ __forceinline__ Frag fused_frag(const float* __restrict__ at,
                                            int gcell, const Geom& g) {
-  Frag f;
-  f.cy = center(g.oy, gcell % g.n, g.vs);
-  f.cz = center(g.oz, gcell / g.n, g.vs);
-  f.s0 = sigmoid((at[0] * f.cz + at[1] * f.cy + at[2]) / g.tau_e);
-  f.s1 = sigmoid((at[3] * f.cz + at[4] * f.cy + at[5]) / g.tau_e);
-  f.s2 = sigmoid((at[6] * f.cz + at[7] * f.cy + at[8]) / g.tau_e);
-  f.cov = f.s0 * f.s1 * f.s2;
-  f.w = at[12] * f.cov;
-  f.xh = at[9] - at[10] * f.cy - at[11] * f.cz;
-  return f;
-}
-
-// The slot's table row, or nullptr for a pad slot or an index outside
-// the table (inert, never read out of bounds).
-__device__ __forceinline__ const float* table_row(const float* tables,
-                                                  const int* tblidx,
-                                                  long long k, int b,
-                                                  int tbl) {
-  const int idx = tblidx[k];
-  if (idx < 0 || idx >= tbl) return nullptr;
-  return tables + ((long long)b * tbl + idx) * kNattr;
+  return frag_at(at, center(g.oy, gcell % g.n, g.vs),
+                 center(g.oz, gcell / g.n, g.vs), g);
 }
 
 // B7 / B13 fwd. Grid (runs, ceil(n / kXC)), kXC * kLanes threads: a
@@ -173,19 +124,15 @@ __global__ void accumulate_kernel(const float* __restrict__ tables,
       const int c = s_cell[s];
       if (c < 0) continue;  // uniform per warp: its threads read one slot
       const float v = s_w[s] * sigmoid((s_xh[s] - cx) / g.tau_x);
-      if (fabsf(v) <= 1.0f)
-        atomicAdd(&acc[c * kXC + col], (unsigned long long)__float2ll_rn(v * kFix));
-      else
-        atomicOr(&s_bad[(c >> 5) * kXC + col], 1u << (c & 31));
+      fix_add(&acc[c * kXC + col], &s_bad[(c >> 5) * kXC + col], 1u << (c & 31), v);
     }
   }
   __syncthreads();
   if (x < g.n) {
     float* o = out + (long long)tile * g.tc * g.n + x;
     for (int c = lane; c < g.tc; c += kLanes)
-      o[(long long)c * g.n] = (s_bad[(c >> 5) * kXC + col] >> (c & 31)) & 1u
-                                  ? __int_as_float(0x7fffffff)
-                                  : __ll2float_rn((long long)acc[c * kXC + col]) * kUnfix;
+      o[(long long)c * g.n] =
+          fix_value(acc[c * kXC + col], (s_bad[(c >> 5) * kXC + col] >> (c & 31)) & 1u);
   }
 }
 
@@ -253,46 +200,16 @@ __global__ void slot_grad_kernel(const float* __restrict__ tables,
       dx_out[k] = dxh;
       continue;
     }
-    // Chain rule to the coefficients, `_fused_bwd_kernel` lines 348-360.
-    float* d = s_d + s * kNgrad;
     if (!live) {
       s_row[s] = -1;
       continue;
     }
-    const float dcov = dw * at[12];
-    const float de0 = dcov * f.cov * (1.0f - f.s0) / g.tau_e;
-    const float de1 = dcov * f.cov * (1.0f - f.s1) / g.tau_e;
-    const float de2 = dcov * f.cov * (1.0f - f.s2) / g.tau_e;
-    d[0] = de0 * f.cz;
-    d[1] = de0 * f.cy;
-    d[2] = de0;
-    d[3] = de1 * f.cz;
-    d[4] = de1 * f.cy;
-    d[5] = de1;
-    d[6] = de2 * f.cz;
-    d[7] = de2 * f.cy;
-    d[8] = de2;
-    d[9] = dxh;
-    d[10] = -dxh * f.cy;
-    d[11] = -dxh * f.cz;
-    d[12] = dw * f.cov;
+    chain_rule(s_d + s * kNgrad, at, f, dw, dxh, g);
     s_row[s] = tblidx[k];
   }
   if (!kFused) return;
   __syncthreads();
-  // One thread per table row: its slots (contiguous in the plan) in
-  // slot order.
-  for (int r = threadIdx.x; r < tbl; r += blockDim.x) {
-    float sum[kNgrad];
-    for (int j = 0; j < kNgrad; ++j) sum[j] = 0.0f;
-    for (int s = 0; s < tb; ++s) {
-      if (s_row[s] != r) continue;
-      for (int j = 0; j < kNgrad; ++j) sum[j] += s_d[s * kNgrad + j];
-    }
-    float* o = dtab + ((long long)b * tbl + r) * kNattr;
-    for (int j = 0; j < kNgrad; ++j) o[j] = sum[j];
-    for (int j = kNgrad; j < kNattr; ++j) o[j] = 0.0f;
-  }
+  row_sums(s_d, s_row, tb, tbl, dtab + (long long)b * tbl * kNattr);
 }
 
 size_t fwd_smem(int tc, int tb) {
@@ -353,7 +270,7 @@ extern "C" int vt_fused_fwd(const void* tables, const void* cells,
                             int tbl, int n, int tc, int num_tiles, float ox,
                             float oy, float oz, float vs, float tau_e,
                             float tau_x, void* out, void* stream) {
-  const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc};
+  const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc, 0};
   return launch_fwd<true>(tables, tblidx, nullptr, nullptr, cells, batch_tile,
                           run_start, num_runs, tb, tbl, num_tiles, g, out,
                           stream);
@@ -366,7 +283,7 @@ extern "C" int vt_fused_bwd(const void* tables, const void* cells,
                             int tbl, int n, int tc, int num_tiles, float ox,
                             float oy, float oz, float vs, float tau_e,
                             float tau_x, void* dtab, void* stream) {
-  const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc};
+  const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc, 0};
   return launch_bwd<true>(tables, tblidx, nullptr, nullptr, cells, batch_tile,
                           gocc, num_batches, tb, tbl, num_tiles, g, dtab,
                           nullptr, nullptr, stream);
@@ -379,7 +296,7 @@ extern "C" int vt_fragment_fwd(const void* wb, const void* xb,
                                int n, int tc, int num_tiles, float ox,
                                float vs, float tau_x, void* out,
                                void* stream) {
-  const Geom g = {ox, 0.0f, 0.0f, vs, 1.0f, tau_x, n, tc};
+  const Geom g = {ox, 0.0f, 0.0f, vs, 1.0f, tau_x, n, tc, 0};
   return launch_fwd<false>(nullptr, nullptr, wb, xb, cells, batch_tile,
                            run_start, num_runs, tb, 0, num_tiles, g, out,
                            stream);
@@ -392,7 +309,7 @@ extern "C" int vt_fragment_bwd(const void* wb, const void* xb,
                                int n, int tc, int num_tiles, float ox,
                                float vs, float tau_x, void* dw, void* dx,
                                void* stream) {
-  const Geom g = {ox, 0.0f, 0.0f, vs, 1.0f, tau_x, n, tc};
+  const Geom g = {ox, 0.0f, 0.0f, vs, 1.0f, tau_x, n, tc, 0};
   return launch_bwd<false>(nullptr, nullptr, wb, xb, cells, batch_tile, gocc,
                            num_batches, tb, 0, num_tiles, g, nullptr, dw, dx,
                            stream);

@@ -9,7 +9,8 @@ against the hard union of the unperturbed parts. Without ``--mesh-a`` /
         [--mesh-b b.obj] [--n 48] [--steps 60] [--noise 0.01] [--lr 5e-3]
         [--device cuda|cpu]
 
-Exits 0 when the loss fell.
+Runs on the card unless ``--device cpu`` asks for the CPU. Exits 0 when
+the loss fell.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--noise", type=float, default=0.01)
     ap.add_argument("--lr", type=float, default=5e-3)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, else cpu); "
-                         "on cuda --n must be a multiple of 32")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; exits when there is no "
+                         "card) or cpu; on cuda --n must be a multiple of 32")
     args = ap.parse_args(argv)
 
     import numpy as np

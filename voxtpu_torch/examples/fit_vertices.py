@@ -7,9 +7,11 @@ target is a procedural icosphere.
 
     python -m voxtpu_torch.examples.fit_vertices [--mesh m.obj] [--n 64]
         [--steps 100] [--noise 0.02] [--lr 5e-3]
-        [--engine auto|plain|cuda|fused] [--device cuda|cpu] [--out f.obj]
+        [--engine auto|plain|cuda|fused|seg] [--device cuda|cpu] [--out f.obj]
 
-Prints the hard-occupancy IoU against the target before and after.
+Prints the hard-occupancy IoU against the target before and after. The
+run is on the card unless ``--device cpu`` asks for the CPU; without a
+card it exits with a message that says so.
 """
 
 from __future__ import annotations
@@ -19,16 +21,20 @@ import sys
 
 
 def run_device(ap, args):
-    """The run's torch device (``--device``, else cuda if available).
-    On a card the target and the IoU come from the packed voxelizer
-    (B1/B2), which needs N % 32 == 0; only the CPU has the NumPy oracle
-    for other N."""
+    """The run's torch device, ``--device`` (default cuda). Without a
+    CUDA device, cuda is refused through `ap.error`, never replaced by
+    the CPU. On a card the target and the IoU come from the packed
+    voxelizer (B1/B2), which needs N % 32 == 0; only the CPU has the
+    NumPy oracle for other N."""
     import torch
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     if args.n % 32 and device.type != "cpu":
         ap.error(f"--n {args.n} on {device}: the packed voxelizer needs a multiple "
                  "of 32 (any --n runs with --device cpu)")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error(f"--device {args.device}: no CUDA device is available "
+                 "(--device cpu runs the plain torch versions)")
     return device
 
 
@@ -58,13 +64,17 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "plain", "cuda", "fused", "seg"],
-                    help="soft-voxelization engine (auto: fused on a card, "
-                         "plain on the CPU)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, else cpu); "
-                         "on cuda --n must be a multiple of 32")
+                    help="soft-voxelization engine (auto: seg on a card for "
+                         "256 <= --n <= 512, fused for other --n, plain on the "
+                         "CPU; seg needs --n >= 256 and a multiple of 128)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default; exits when there is no "
+                         "card) or cpu; on cuda --n must be a multiple of 32")
     ap.add_argument("--out", default=None, help="export the fitted mesh .obj")
     args = ap.parse_args(argv)
+    if args.engine == "seg" and (args.n < 256 or args.n % 128):
+        ap.error(f"--engine seg needs --n >= 256 and a multiple of 128 "
+                 f"(got {args.n})")
 
     import numpy as np
     import torch

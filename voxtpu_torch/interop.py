@@ -12,7 +12,8 @@ against voxtpu's.
   `local`, `batch_tile`, `batch_basew` and the `wide` tuple of
   `voxtpu.ops.vox_slots_banded.BandedSlotVoxPipeline`;
 - the soft engines' slot layouts (`voxtpu.ops.soft_vox_fused.
-  FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`);
+  FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`,
+  `voxtpu.ops.soft_vox_seg.SegSoftPlan`);
 - a `VoxelFit` state: coordinates, optax's Adam (count, mu, nu) and the
   step, the leaves of voxtpu's checkpoints.
 """
@@ -25,6 +26,7 @@ import torch
 from voxtpu_torch.models.fit import FitState
 from voxtpu_torch.ops.soft_vox_cuda import SoftCudaPlan
 from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
+from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedState
 
 
@@ -82,6 +84,18 @@ def fused_plan_from_voxtpu(soft_plan, cells_b, tblidx_b, batch_tile,
     tile mask drive its sequential TPU grid and are not needed."""
     return FusedSoftPlan.from_layout(soft_plan, device, cells_b, tblidx_b,
                                      batch_tile, table_face_flat)
+
+
+def seg_plan_from_voxtpu(soft_plan, batch_tile, batch_panel, cells_b, tblidx_b,
+                         table_face_flat, device="cpu") -> SegSoftPlan:
+    """The port's seg plan on voxtpu's `SegSoftPlan` layout: its
+    `batch_tile`, `batch_panel`, `cells_b`, `tblidx_b` and
+    `table_face_flat`, over the port's soft plan of the same mesh (whose
+    build coordinates give the x-hit drift snapshot). voxtpu's FIRST/LAST
+    flags and visited-block masks drive its sequential TPU grid and are
+    not needed."""
+    return SegSoftPlan.from_layout(soft_plan, device, batch_tile, batch_panel,
+                                   cells_b, tblidx_b, table_face_flat)
 
 
 def soft_cuda_plan_from_voxtpu(soft_plan, cells_b, batch_tile, perm_fwd,

@@ -26,7 +26,17 @@ import torch
 
 from voxtpu_torch.ops.soft_vox import refresh_soft_plan, soft_voxelize
 
-ENGINES = ("plain", "cuda", "fused")
+ENGINES = ("plain", "cuda", "fused", "seg")
+
+
+def auto_engine(n: int, device) -> str:
+    """voxtpu's engine choice (`voxtpu/models/fit.py:108-123`) on this
+    port's devices: on a CUDA device the seg engine for 256 <= n <= 512
+    where its panels tile the grid (n % 128 == 0), else the fused
+    engine; the plain engine on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "seg" if 256 <= n <= 512 and n % 128 == 0 else "fused"
 
 
 def soft_iou_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -76,19 +86,23 @@ class VoxelFit:
     """Adam-based vertex fitting of a template mesh to a target grid.
 
     Engines: ``"plain"`` (`ops/soft_vox.py`, torch ops), ``"cuda"``
-    (`ops/soft_vox_cuda.py`, kernels B13) and ``"fused"``
-    (`ops/soft_vox_fused.py`, kernels B7/B8) — voxtpu's ``xla``,
-    ``pallas`` and ``fused``. ``"auto"`` is ``"fused"`` for a target on
-    a CUDA device and ``"plain"`` on the CPU. Each engine runs on the
-    target's device: its kernels on CUDA tensors, their plain versions
-    on CPU tensors.
+    (`ops/soft_vox_cuda.py`, kernels B13), ``"fused"``
+    (`ops/soft_vox_fused.py`, kernels B7/B8) and ``"seg"``
+    (`ops/soft_vox_seg.py`, kernels B9-B11; n >= 256, n % 128 == 0) —
+    voxtpu's ``xla``, ``pallas``, ``fused`` and ``seg``. ``"auto"``
+    follows voxtpu's rule for a target on a CUDA device: ``"seg"`` for
+    256 <= n <= 512 (n % 128 == 0), else ``"fused"``; ``"plain"`` on
+    the CPU. Each engine runs on the target's device: its kernels on
+    CUDA tensors, their plain versions on CPU tensors.
 
     Plan staleness guard: the soft plan's raster windows cover vertex
     motion up to its pad window. `step()` checks the drift every
     `refresh_every` steps (one scalar read from the device) and rebuilds
     the plan from the current coordinates when the largest displacement
-    exceeds ``drift_limit_frac * pad_window`` voxels; ``refresh_every=0``
-    leaves refreshes to :meth:`maybe_refresh_plan`.
+    exceeds ``drift_limit_frac * pad_window`` voxels, or, for the seg
+    engine, when an x_hit moved toward its panel's edge (`SegSoftPlan.
+    xhit_drift_vox`, read on the host); ``refresh_every=0`` leaves
+    refreshes to :meth:`maybe_refresh_plan`.
     """
 
     def __init__(self, plan, target_occ: torch.Tensor,
@@ -103,11 +117,7 @@ class VoxelFit:
         self._tau = (tau_edge_frac, tau_x_frac)
         self._loss_fn = loss_fn
         if engine == "auto":
-            engine = "fused" if self.device.type == "cuda" else "plain"
-        if engine == "seg":
-            raise NotImplementedError(
-                "the seg engine (kernels B9-B11) is not ported yet "
-                "(ROADMAP.md, queue A: the seg engine)")
+            engine = auto_engine(plan.spec.n, self.device)
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r} (expected one of "
                              f"{ENGINES + ('auto',)})")
@@ -135,6 +145,12 @@ class VoxelFit:
             eplan = SoftCudaPlan(self.plan, self.device)
             self._fwd = lambda c: soft_voxelize_cuda(
                 c, eplan, tau_edge_frac=te, tau_x_frac=tx)
+        elif self.engine == "seg":
+            from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan, soft_voxelize_seg
+
+            eplan = SegSoftPlan(self.plan, self._plan_coords, self.device)
+            self._fwd = lambda c: soft_voxelize_seg(
+                c, eplan, tau_edge_frac=te, tau_x_frac=tx)
         else:
             plan = self.plan
             self._fwd = lambda c: soft_voxelize(c, plan, tau_edge_frac=te,
@@ -161,9 +177,18 @@ class VoxelFit:
 
     def maybe_refresh_plan(self, state: FitState, force: bool = False) -> bool:
         """Rebuild the soft plan if the vertices drifted past the pad
-        window (or when forced); True if it was rebuilt."""
+        window, or, for engine="seg", if an x_hit drifted toward its
+        panel's edge (or when forced); True if it was rebuilt."""
         if not force and float(self.drift_voxels(state.coords)) <= self.drift_limit_vox:
-            return False
+            if self.engine != "seg":
+                return False
+            from voxtpu_torch.ops.soft_vox_seg import MARGIN
+
+            # No floor (`voxtpu/models/fit.py:199-206`): near the engine's
+            # tau_x limit the slack reaches 0 and any x_hit drift refreshes.
+            limit = max(MARGIN - 17.0 * self._tau[1] - 4.0, 0.0)
+            if self.engine_plan.xhit_drift_vox(state.coords) <= limit:
+                return False
         self.plan = refresh_soft_plan(self.plan, state.coords)
         self._plan_coords = self._coords(state.coords).clone()
         self.refresh_count += 1

@@ -93,28 +93,50 @@ def _batch_chunks(num_batches: int, tb: int, n: int):
         yield b0, min(num_batches, b0 + step)
 
 
-def _fused_slots(tables, cells_b, tblidx_b, batch_tile, b0, b1, *, n, tc, prm):
-    """Per-slot values of batches [b0, b1) (`_fused_fwd_kernel` lines
-    240-261): (valid (nb, tb) bool, gcell, cy, cz, s0, s1, s2, cov, at,
-    w, xh)."""
-    _, oy, oz, vs, tau_e, _ = prm
+def slot_rows(tables, cells_b, tblidx_b, b0, b1, *, tc):
+    """The slots of batches [b0, b1): (valid (nb, tb) bool, local cells
+    (nb, tb) int64, their table rows as 16 (nb, tb) tensors)."""
     nb = b1 - b0
     cells = cells_b[b0:b1].reshape(nb, -1).long()
     idx = tblidx_b[b0:b1].reshape(nb, -1).long()
     tbl = tables.shape[1]
     valid = (cells >= 0) & (cells < tc) & (idx >= 0) & (idx < tbl)
-    gcell = batch_tile[b0:b1].long()[:, None] * tc + cells
-    cy = oy + ((gcell % n).float() * vs + vs * 0.5)
-    cz = oz + ((gcell // n).float() * vs + vs * 0.5)
     at = torch.gather(tables[b0:b1], 1,
                       idx.clamp(0, tbl - 1)[..., None].expand(-1, -1, NATTR))
-    at = at.unbind(-1)
+    return valid, cells, at.unbind(-1)
+
+
+def slot_fragment(at, cy, cz, tau_e):
+    """A slot's fragment from its table row and cell centre
+    (`_fused_fwd_kernel` lines 257-261): (s0, s1, s2, cov, w, xh)."""
     s0 = torch.sigmoid((at[0] * cz + at[1] * cy + at[2]) / tau_e)
     s1 = torch.sigmoid((at[3] * cz + at[4] * cy + at[5]) / tau_e)
     s2 = torch.sigmoid((at[6] * cz + at[7] * cy + at[8]) / tau_e)
     cov = s0 * s1 * s2
-    w = at[12] * cov
-    xh = at[9] - at[10] * cy - at[11] * cz
+    return s0, s1, s2, cov, at[12] * cov, at[9] - at[10] * cy - at[11] * cz
+
+
+def chain_rule(dw, dxh, at, cy, cz, s0, s1, s2, cov, tau_e):
+    """Per-slot (dw, dx_hit) -> the 13 coefficient cotangents (..., 13)
+    (`_fused_bwd_kernel` lines 348-360)."""
+    dcov = dw * at[12]
+    de = [dcov * cov * (1.0 - s) / tau_e for s in (s0, s1, s2)]
+    return torch.stack([de[0] * cz, de[0] * cy, de[0],
+                        de[1] * cz, de[1] * cy, de[1],
+                        de[2] * cz, de[2] * cy, de[2],
+                        dxh, -dxh * cy, -dxh * cz, dw * cov], dim=-1)
+
+
+def _fused_slots(tables, cells_b, tblidx_b, batch_tile, b0, b1, *, n, tc, prm):
+    """Per-slot values of batches [b0, b1) (`_fused_fwd_kernel` lines
+    240-261): (valid (nb, tb) bool, gcell, cy, cz, s0, s1, s2, cov, at,
+    w, xh)."""
+    _, oy, oz, vs, tau_e, _ = prm
+    valid, cells, at = slot_rows(tables, cells_b, tblidx_b, b0, b1, tc=tc)
+    gcell = batch_tile[b0:b1].long()[:, None] * tc + cells
+    cy = oy + ((gcell % n).float() * vs + vs * 0.5)
+    cz = oz + ((gcell // n).float() * vs + vs * 0.5)
+    s0, s1, s2, cov, w, xh = slot_fragment(at, cy, cz, tau_e)
     return valid, gcell, cy, cz, s0, s1, s2, cov, at, w, xh
 
 
@@ -150,16 +172,24 @@ def fused_bwd_plain(tables, cells_b, tblidx_b, batch_tile, g, *, n: int,
         sa, sb = profile_sums(g_ext, rows, xh.reshape(-1), cx, tau_x)
         dw = sa.view_as(w)
         dxh = (w / tau_x) * sb.view_as(w)
-        dcov = dw * at[12]
-        de = [dcov * cov * (1.0 - s) / tau_e for s in (s0, s1, s2)]
-        d = torch.stack([de[0] * cz, de[0] * cy, de[0],
-                         de[1] * cz, de[1] * cy, de[1],
-                         de[2] * cz, de[2] * cy, de[2],
-                         dxh, -dxh * cy, -dxh * cz, dw * cov], dim=-1)
-        bidx = torch.arange(b0, b1, device=tables.device)[:, None]
-        target = torch.where(valid, bidx * tbl + tblidx_b[b0:b1].reshape(
-            b1 - b0, -1).long(), num_batches * tbl)
-        dtab.index_add_(0, target.reshape(-1), d.reshape(-1, NGRAD))
+        d = chain_rule(dw, dxh, at, cy, cz, s0, s1, s2, cov, tau_e)
+        table_add(dtab, d, valid, tblidx_b, b0, b1)
+    return table_grid(dtab, num_batches, tbl)
+
+
+def table_add(dtab, d, valid, tblidx_b, b0, b1) -> None:
+    """Add the slots' (nb, tb, 13) cotangents `d` of batches [b0, b1)
+    into their table rows of `dtab` ((B * tbl + 1, 13), the last row a
+    dump for pad slots)."""
+    tbl = (dtab.shape[0] - 1) // tblidx_b.shape[0]
+    bidx = torch.arange(b0, b1, device=dtab.device)[:, None]
+    target = torch.where(valid, bidx * tbl + tblidx_b[b0:b1].reshape(
+        b1 - b0, -1).long(), dtab.shape[0] - 1)
+    dtab.index_add_(0, target.reshape(-1), d.reshape(-1, NGRAD))
+
+
+def table_grid(dtab, num_batches: int, tbl: int) -> torch.Tensor:
+    """A `table_add` accumulator as (B, tbl, 16) table cotangents."""
     dtab = dtab[:-1].view(num_batches, tbl, NGRAD)
     return torch.cat([dtab, dtab.new_zeros((num_batches, tbl, NATTR - NGRAD))], -1)
 
@@ -467,7 +497,65 @@ def slot_cells(soft_plan, n: int):
     return np.concatenate(cells_l), np.concatenate(faces_l)
 
 
-class FusedSoftPlan:
+class TablePlan:
+    """A slot layout (`cells_b`, `tblidx_b`, `batch_tile`) with its
+    per-batch triangle tables (`table_face_flat`) and the classed
+    reductions behind `tables_of`, on `device`: what the fused and seg
+    plans share."""
+
+    def _setup_tables(self, soft_plan, device, tc, tbl, cells_b, tblidx_b,
+                      batch_tile, table_face_flat):
+        spec = soft_plan.spec
+        self.spec = spec
+        self.soft_plan = soft_plan
+        self.tc, self.tbl = tc, tbl
+        self.cells_b = np.asarray(cells_b, np.int32)
+        self.tb_sub = self.cells_b.shape[1]
+        self.tblidx_b = np.asarray(tblidx_b, np.int32)
+        self.batch_tile = np.asarray(batch_tile, np.int32)
+        self.num_batches = self.batch_tile.shape[0]
+        self.table_face_flat = np.asarray(table_face_flat, np.int32)
+        faces = np.asarray(soft_plan.faces_array)
+        self.num_faces = int(faces.shape[0])
+        _check_range(self.batch_tile, "batch_tile", 0, (spec.n * spec.n) // tc)
+        _check_range(self.tblidx_b, "tblidx_b", 0, tbl)
+        _check_range(self.cells_b, "cells_b", -1, tc)
+        _check_fwd_smem(tc, self.cells_b[0].size)
+
+        # Classed slot -> face reduction (expand backward) and classed
+        # (face, corner) -> vertex reduction (coords backward).
+        self.expand_cls, self.expand_inv = _build_classed_reduction(
+            self.table_face_flat, self.num_faces)
+        faces_flat = faces.reshape(-1)
+        self.num_vertices = int(faces_flat.max(initial=-1)) + 1
+        self.vert_cls, self.vert_inv = _build_classed_reduction(
+            faces_flat, self.num_vertices)
+
+        dev = torch.empty(0, device=device).device
+        self.device = dev
+        fidx = np.where(self.table_face_flat < 0, self.num_faces,
+                        self.table_face_flat)
+        self.cells_d = self._to_device(self.cells_b, torch.int32)
+        self.tblidx_d = self._to_device(self.tblidx_b, torch.int32)
+        self.batch_tile_d = self._to_device(self.batch_tile, torch.int32)
+        self.fidx_d = self._to_device(fidx, torch.int64)
+        self.faces_d = self._to_device(faces, torch.int64)
+        self.expand_cls_d = tuple(self._to_device(p, torch.int64)
+                                  for p in self.expand_cls)
+        self.expand_inv_d = self._to_device(self.expand_inv, torch.int64)
+        self.vert_cls_d = tuple(self._to_device(p, torch.int64) for p in self.vert_cls)
+        self.vert_inv_d = self._to_device(self.vert_inv, torch.int64)
+
+    def _to_device(self, a, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
+
+    def prm(self, tau_edge_frac: float, tau_x_frac: float):
+        """The kernels' float32 parameters (ox, oy, oz, vs, tau_e, tau_x)."""
+        vs, tau_e, tau_x = temperatures(self.spec, tau_edge_frac, tau_x_frac)
+        return tuple(f32(o) for o in self.spec.origin) + (vs, tau_e, tau_x)
+
+
+class FusedSoftPlan(TablePlan):
     """Static (tile, triangle) batch layout and per-batch triangle
     tables of one soft plan, on `device` (`soft_vox_fused.py:699-796`).
 
@@ -520,59 +608,13 @@ class FusedSoftPlan:
 
     def _setup(self, soft_plan, device, tc, tbl, cells_b, tblidx_b,
                batch_tile, table_face_flat, tile_mask):
-        spec = soft_plan.spec
-        self.spec = spec
-        self.soft_plan = soft_plan
-        self.tc, self.tbl = tc, tbl
-        self.cells_b = np.asarray(cells_b, np.int32)
-        self.tb_sub = self.cells_b.shape[1]
-        self.tblidx_b = np.asarray(tblidx_b, np.int32)
-        self.batch_tile = np.asarray(batch_tile, np.int32)
+        self._setup_tables(soft_plan, device, tc, tbl, cells_b, tblidx_b,
+                           batch_tile, table_face_flat)
         self.tile_mask = tile_mask
-        self.num_batches = self.batch_tile.shape[0]
-        self.table_face_flat = np.asarray(table_face_flat, np.int32)
-        faces = np.asarray(soft_plan.faces_array)
-        self.num_faces = int(faces.shape[0])
-        _check_range(self.batch_tile, "batch_tile", 0, (spec.n * spec.n) // tc)
-        _check_range(self.tblidx_b, "tblidx_b", 0, tbl)
-        _check_range(self.cells_b, "cells_b", -1, tc)
-        _check_fwd_smem(tc, self.cells_b[0].size)
-
-        # Classed slot -> face reduction (expand backward) and classed
-        # (face, corner) -> vertex reduction (coords backward).
-        self.expand_cls, self.expand_inv = _build_classed_reduction(
-            self.table_face_flat, self.num_faces)
-        faces_flat = faces.reshape(-1)
-        self.num_vertices = int(faces_flat.max(initial=-1)) + 1
-        self.vert_cls, self.vert_inv = _build_classed_reduction(
-            faces_flat, self.num_vertices)
-
-        dev = torch.empty(0, device=device).device
-        self.device = dev
-
-        def t(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-        fidx = np.where(self.table_face_flat < 0, self.num_faces,
-                        self.table_face_flat)
-        self.cells_d = t(self.cells_b, torch.int32)
-        self.tblidx_d = t(self.tblidx_b, torch.int32)
-        self.batch_tile_d = t(self.batch_tile, torch.int32)
-        self.run_start_d = t(tile_runs(self.batch_tile), torch.int32)
-        self.fidx_d = t(fidx, torch.int64)
-        self.faces_d = t(faces, torch.int64)
-        self.expand_cls_d = tuple(t(p, torch.int64) for p in self.expand_cls)
-        self.expand_inv_d = t(self.expand_inv, torch.int64)
-        self.vert_cls_d = tuple(t(p, torch.int64) for p in self.vert_cls)
-        self.vert_inv_d = t(self.vert_inv, torch.int64)
-
-    def prm(self, tau_edge_frac: float, tau_x_frac: float):
-        """The kernels' float32 parameters (ox, oy, oz, vs, tau_e, tau_x)."""
-        vs, tau_e, tau_x = temperatures(self.spec, tau_edge_frac, tau_x_frac)
-        return tuple(f32(o) for o in self.spec.origin) + (vs, tau_e, tau_x)
+        self.run_start_d = self._to_device(tile_runs(self.batch_tile), torch.int32)
 
 
-def tables_of(coords: torch.Tensor, plan: FusedSoftPlan) -> torch.Tensor:
+def tables_of(coords: torch.Tensor, plan: TablePlan) -> torch.Tensor:
     """(B, tbl, 16) coefficient tables of `coords`, differentiable."""
     tri = _GatherTri.apply(coords, plan)                     # (T, 3, 3)
     coeffs = triangle_coeffs(tri)                            # (T, 16)
