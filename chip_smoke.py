@@ -26,6 +26,22 @@ and no result line:
    (CUDA events, warm, median of 5). The washers' wide slots are all
    inert (an x-parallel cap covers no cell centre), so B2 is also timed
    on random live slots of the same shape and tiles.
+4b. voxtpu's own routes (phase 4's state freed first, this phase's
+   freed before phase 5): B12 (word-event fill) against its plain
+   version on the icosphere at n=96 (36 tiles a supertile), n=128, and
+   n=128 with tc=64, tb_sub=1; then on phase 4's two washers at 512^3
+   and 1024^3, `voxelize(backend="word_event")` on a WordEventVoxPlan
+   and DeviceVoxPipeline.words() must each equal the banded pipeline's
+   grid (xor popcount 0, overflow 0) and launch B12, which is held
+   against its plain version at full size; events, batches, plan build
+   times and the per-call totals of DeviceVoxPipeline.words() and of
+   the banded pipeline (CUDA events, warm, median of 5) are printed.
+   `jfa()` on the union of the two 1024^3 grids must run B4 (row-band
+   flood step) and not B3, and equal a B3 chain bitwise; B4 is held
+   against B3 and against its band-wise plain version at every stride,
+   and B4 and B3 are timed per step. Last, the CLI with -t 1 (the
+   plain route) on the card at n=128 on two small washers must equal
+   -t 2: grid xor 0, SDF bitwise.
 5. Training kernels against their plain torch versions at n=128 on a
    jittered icosphere(4), soft plan with pad 2: B7 (fused forward)
    occupancy within 1e-4; B8 (fused backward) table cotangents for a
@@ -59,7 +75,7 @@ and no result line:
    same start on the same plan: B13 fwd / bwd are held and timed as B7
    / B8 were, and its first loss must equal the fused engine's within
    1e-4 relative. The kernel table's launches are phase 4's for B1-B5
-   and this phase's for B7-B11 and B13.
+   and this phase's for B7-B11 and B13 (phase 4b's for B4 and B12).
 7. `python -m voxtpu_torch.examples.fit_vertices --n 64 --steps 10
    --engine fused` on an OBJ written here must exit 0 with an improved
    hard IoU.
@@ -94,6 +110,9 @@ TAU = (0.5, 0.5)        # VoxelFit's default (tau_edge_frac, tau_x_frac)
 OCC_TOL = 1e-4          # occupancy, absolute
 GRAD_TOL = 1e-3         # cotangents and gradients, times max|plain|
 SEG_N = 256             # phase 5b's grid, the seg engine's floor
+WE_SIZES = (MAIN_N, 1024)  # phase 4b's word-event grids
+JFA_N = 1024            # B4's grid (jfa routes 512 < N <= 1024 to it)
+PLAIN_CLI_N = 128       # phase 4b's -t 1 run on the card
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its operations over their
@@ -836,6 +855,204 @@ def plain_flood(occ, org):
     return seed, sdf_from_seed_plain(seed, occ, org)
 
 
+def xor_popcount(a, b) -> int:
+    """Set bits of a ^ b over two int32 word tensors."""
+    from voxtpu_torch.grids.voxel_grid import popcount32
+
+    return int(popcount32(a ^ b).sum())
+
+
+def we_args(plan):
+    """B12's inputs on a word-event plan."""
+    return (plan.cells, plan.ws, plan.his, plan.masks, plan.cnts, plan.batch_tile)
+
+
+def check_word_event_small(dev, errs, sphere) -> None:
+    """Phase 4b, first part: B12 against its plain version on the
+    icosphere at n=96 (G = 36), n=128, and n=128 with tc=64, tb_sub=1."""
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec
+    from voxtpu_torch.ops import vox_word_event as W
+
+    for n, tc, tb_sub in ((96, 128, 4), (128, 128, 4), (128, 64, 1)):
+        spec = GridSpec.fit(sphere.coords, n)
+        plan = W.WordEventVoxPlan(sphere, spec, dev, tc=tc, tb_sub=tb_sub)
+        got = W.word_event_fill(*we_args(plan), n=n, tc=tc)
+        want = W.word_event_fill_plain(*we_args(plan), n=n, tc=tc)
+        errs["B12"] = max(errs["B12"], int_err(got, want))
+        require(torch.equal(got, want), f"B12 differs from its plain version (n={n}, "
+                f"tc={tc}, tb_sub={tb_sub})")
+        require(bool((got != 0).any()), f"B12 produced an empty grid (n={n})")
+        print(f"B12 n={n} tc={tc} tb_sub={tb_sub}: {plan.num_events} events in "
+              f"{plan.num_batches} batches, G={plan.group}, equal")
+
+
+def word_event_route(dev, errs, timings, bounds, meshes):
+    """Phase 4b, the word-event route at WE_SIZES on `meshes`: a
+    WordEventVoxPlan through `voxelize(backend="word_event")` and a
+    DeviceVoxPipeline, each against the banded pipeline's grid; B12
+    held against its plain version on every plan. Returns (B12's
+    launches on the route, the banded grids at JFA_N, that grid's
+    spec)."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec
+    from voxtpu_torch.ops import vox_word_event as W
+    from voxtpu_torch.ops.vox import voxelize
+    from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
+
+    B12 = W.word_event_fill
+    allc = np.concatenate([m.coords for m in meshes])
+    launches, kept, kept_spec = 0, [], None
+    for n in WE_SIZES:
+        spec = GridSpec.fit(allc, n)
+        for mesh in meshes:
+            t0 = time.perf_counter()
+            banded = BandedSlotVoxPipeline(mesh, spec, dev)
+            want, overflow = banded.words()
+            require(int(overflow) == 0, f"banded overflow at {n}^3")
+            t1 = time.perf_counter()
+            plan = W.WordEventVoxPlan(mesh, spec, dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pipe = W.DeviceVoxPipeline(mesh, spec, dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+
+            B12.launches = 0
+            grid = voxelize(mesh, spec, "word_event", device=dev, plan=plan)
+            words, overflow = pipe.words()
+            overflow = int(overflow)
+            route = B12.launches
+            launches += route
+            require(route == 2, f"the word-event route launched B12 {route} times at {n}^3")
+            require(overflow == 0, f"DeviceVoxPipeline overflow {overflow} at {n}^3")
+            x_plan, x_pipe = xor_popcount(grid.words, want), xor_popcount(words, want)
+            require(x_plan == 0 and x_pipe == 0, f"{mesh.name} {n}^3: word-event grids "
+                    f"differ from the banded one (xor popcount {x_plan}, {x_pipe})")
+            with uncounted(B12):
+                args = we_args(plan)
+                got = B12(*args, n=n, tc=plan.tc)
+                plain = W.word_event_fill_plain(*args, n=n, tc=plan.tc)
+                errs["B12"] = max(errs["B12"], int_err(got, plain))
+                require(torch.equal(got, plain), f"B12 differs from plain at {n}^3")
+                del got, plain
+                pipe_ms, banded_ms = cuda_ms(pipe.words), cuda_ms(banded.words)
+                if n == MAIN_N and mesh is meshes[0]:
+                    timings["B12"] = (
+                        cuda_ms(lambda: B12(*args, n=n, tc=plan.tc)),
+                        cuda_ms(lambda: W.word_event_fill_plain(*args, n=n, tc=plan.tc)))
+                    bounds["B12"] = bound(nbytes(*args) + n ** 3 // 8)
+            print(f"{mesh.name} {n}^3: {plan.num_fragments:,} candidates, "
+                  f"{pipe.num_valid:,} fragments, {plan.num_events:,} events in "
+                  f"{plan.num_batches:,} batches (b_max {pipe.b_max}, cap_f {pipe.cap_f:,}); "
+                  f"build: banded {t1 - t0:.2f} s, WordEventVoxPlan {t2 - t1:.2f} s, "
+                  f"DeviceVoxPipeline {t3 - t2:.2f} s; per call: DeviceVoxPipeline.words() "
+                  f"{pipe_ms:.3f} ms, banded words() {banded_ms:.3f} ms; xor 0, overflow 0")
+            if n == JFA_N:
+                kept.append(want)
+                kept_spec = spec
+            del banded, plan, pipe, grid, words, want
+        torch.cuda.empty_cache()
+    return launches, kept, kept_spec
+
+
+def jfa_rows(dev, errs, timings, bounds, words, spec):
+    """Phase 4b, JFA at JFA_N: `jfa()` on the grid of `words` must run
+    B4 and not B3 and equal a B3 chain bitwise; B4 held against B3 and
+    flood_step_rows_plain at every stride, B4 and B3 timed per step.
+    Returns B4's launches in the jfa() run."""
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import VoxelGrid
+    from voxtpu_torch.ops import jfa_cuda as J
+    from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
+
+    B3, B4, B5 = J.flood_step, J.flood_step_rows, J.sdf_from_seed
+    n = spec.n
+    grid = VoxelGrid(words, spec.origin_tensor(dev), spec.voxel_size_tensor(dev))
+    for fn in (B3, B4, B5):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sdf = jfa(grid, spec, backend="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"B3": B3.launches, "B4": B4.launches, "B5": B5.launches}
+    steps = n.bit_length() - 1
+    print(f"jfa() at {n}^3: {wall:.3f} s; launches {launches}")
+    require(launches["B4"] == steps and launches["B3"] == 0 and launches["B5"] == 1,
+            f"jfa at {n}^3 must run B4 at each of its {steps} strides and not B3")
+
+    occ = grid.to_dense()
+    org = J.org_tensor(spec, dev)
+    b4_ms, b3_ms, plain_ms, flops = [], [], [], []
+    with uncounted(B3, B4, B5):
+        seed = jfa_init_seed(occ)
+        k = n // 2
+        while k >= 1:
+            nxt = B3(seed, org, k)
+            got = B4(seed, org, k)
+            errs["B4"] = max(errs["B4"], int_err(got, nxt))
+            require(torch.equal(got, nxt), f"B4 differs from B3 at k={k}")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = J.flood_step_rows_plain(seed, org, k)
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+            errs["B4"] = max(errs["B4"], int_err(got, plain))
+            require(torch.equal(got, plain), f"B4 differs from its plain version at k={k}")
+            del got, plain
+            b4_ms.append(cuda_ms(lambda: B4(seed, org, k), reps=3))
+            b3_ms.append(cuda_ms(lambda: B3(seed, org, k), reps=3))
+            flops.append(flood_flops(seed, k))
+            print(f"k={k}: B4 {b4_ms[-1]:.3f} ms, B3 {b3_ms[-1]:.3f} ms, plain "
+                  f"{plain_ms[-1]:.1f} ms, equal")
+            seed = nxt
+            k //= 2
+        chain = B5(seed, occ, org)
+    require(bitwise_equal(sdf, chain), f"jfa() at {n}^3 differs from the B3 chain")
+    finite = float(torch.isfinite(sdf).float().mean())
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    timings["B4"] = (mean(b4_ms), mean(plain_ms))
+    bounds["B4"] = bound(nbytes(seed, org) + 4 * n ** 3, mean(flops))
+    print(f"B4 at {n}^3 per step (mean of k={n // 2}..1): kernel {timings['B4'][0]:.4f} "
+          f"ms, B3 {mean(b3_ms):.4f} ms, plain {timings['B4'][1]:.1f} ms, bound "
+          f"{bounds['B4'][0]:.4f} ms ({bounds['B4'][1]}); SDF bitwise equal to the B3 "
+          f"chain, {int(occ.sum()):,} voxels, finite share {finite}")
+    return launches["B4"]
+
+
+def plain_cli_on_card(dev) -> None:
+    """Phase 4b, last: the CLI's -t 1 (plain route) with --device cuda
+    at PLAIN_CLI_N on two small washers equals its -t 2."""
+    import torch
+
+    from voxtpu_torch import cli
+    from voxtpu_torch.mesh import procedural
+    from voxtpu_torch.mesh.mesh import Mesh
+    from voxtpu_torch.mesh.obj_io import export_mesh
+
+    with tempfile.TemporaryDirectory(prefix="voxtpu_torch_plain_") as tmp:
+        paths = []
+        for name, center in (("ring_a", (2.0, 2.0, 2.0)), ("ring_b", (2.5, 2.0, 2.0625))):
+            c, f = procedural.washer(0.75, 1.0, 0.25, 96, center=center)
+            paths.append(os.path.join(tmp, f"{name}.obj"))
+            export_mesh(paths[-1], Mesh(name=name, coords=c, faces=f, faces_normals=f))
+        argv = [*paths, "-n", str(PLAIN_CLI_N), "-p", "1", "-s", "--device", str(dev)]
+        plain = cli.run([*argv, "-t", "1"])
+        cuda = cli.run([*argv, "-t", "2"])
+    x = xor_popcount(plain.grids[0].words, cuda.grids[0].words)
+    require(x == 0, f"-t 1 grid differs from -t 2 (xor popcount {x})")
+    require(plain.grids[0].count() > 0, "-t 1 grid is empty")
+    require(bitwise_equal(plain.sdf, cuda.sdf), "-t 1 SDF differs from -t 2")
+    print(f"CLI -t 1 --device {dev} at {PLAIN_CLI_N}^3: grid ({plain.grids[0].count():,} "
+          "voxels) xor 0 and SDF bitwise equal to -t 2")
+
+
 def run() -> int:
     import torch
 
@@ -874,7 +1091,7 @@ def run() -> int:
         if "Used" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
 
-    errs = {"B1": 0, "B2": 0, "B3": 0, "B5": 0.0}
+    errs = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0.0, "B12": 0}
 
     def mesh_of(coords, faces, name):
         return Mesh(name=name, coords=coords, faces=faces, faces_normals=faces)
@@ -1070,6 +1287,20 @@ def run() -> int:
     del plain, live_k, live_xs, got, want
     torch.cuda.empty_cache()
 
+    # ---- 4b. voxtpu's own routes: word events (B12), B4, -t 1 -------------------
+    phase(f"4b. word-event route (B12) at {WE_SIZES}, B4 at {JFA_N}^3, -t 1 on the card")
+    t_phase = time.perf_counter()
+    check_word_event_small(dev, errs, sphere)
+    washers = [mesh_of(c, f, "washer_a"), mesh_of(shifted, f, "washer_b")]
+    launches["B12"], kept, spec1024 = word_event_route(dev, errs, timings, bounds, washers)
+    union = kept[0] | kept[1]
+    del kept
+    launches["B4"] = jfa_rows(dev, errs, timings, bounds, union, spec1024)
+    del union, washers
+    torch.cuda.empty_cache()
+    plain_cli_on_card(dev)
+    print(f"phase 4b: {time.perf_counter() - t_phase:.1f} s")
+
     # ---- 5. training kernels vs plain ------------------------------------------
     phase(f"5. training kernels against their plain versions (n={KERNEL_N})")
     check_training_kernels(dev, errs)
@@ -1097,6 +1328,8 @@ def run() -> int:
          "voxtpu/ops/vox_pallas.py:56"),
         ("B3", "B3 flood_step", "voxtpu_torch/csrc/jfa.cu",
          "voxtpu/ops/jfa_pallas.py:43"),
+        ("B4", "B4 flood_step_rows", "voxtpu_torch/csrc/jfa.cu",
+         "voxtpu/ops/jfa_pallas.py:168"),
         ("B5", "B5 sdf_from_seed", "voxtpu_torch/csrc/jfa.cu",
          "voxtpu/ops/jfa_pallas.py:442"),
         ("B7", "B7 fused_fwd", soft, "voxtpu/ops/soft_vox_fused.py:209"),
@@ -1104,12 +1337,15 @@ def run() -> int:
         ("B9", "B9 seg_fwd", seg, "voxtpu/ops/soft_vox_seg.py:89"),
         ("B10", "B10 seg_combine", seg, "voxtpu/ops/soft_vox_seg.py:313"),
         ("B11", "B11 seg_bwd", seg, "voxtpu/ops/soft_vox_seg.py:169"),
+        ("B12", "B12 word_event_fill", "voxtpu_torch/csrc/vox_we.cu",
+         "voxtpu/ops/vox_pallas_we.py:71"),
         ("B13f", "B13 fragment_fwd", soft, "voxtpu/ops/soft_vox_pallas.py:49"),
         ("B13b", "B13 fragment_bwd", soft, "voxtpu/ops/soft_vox_pallas.py:88"),
     ]
     # library_ms: no single PyTorch call computes a parity fill, a
     # 26-candidate flood step, a seeded distance, a per-slot sigmoid
-    # profile or its cotangents, or the seg combine's gather.
+    # profile or its cotangents, the seg combine's gather, or a
+    # word-event XOR fill.
     kernels = []
     for key, name, source, replaces in table:
         ms, plain_ms = timings[key]

@@ -41,28 +41,46 @@ def _same_mesh(a, b):
     return ma.num_faces
 
 
-def test_cli_exports_match_voxtpu_cli(tmp_path, capsys):
-    paths = _write_meshes(tmp_path)
-    flags = ["-n", "32", "-p", "1", "-s", "-e", "-o", "merged.obj"]
+EXPORT_FLAGS = ["-n", "32", "-p", "1", "-s", "-e", "-o", "merged.obj"]
+
+
+@pytest.fixture(scope="module")
+def voxtpu_exports(tmp_path_factory):
+    """The two washers and what `python -m voxtpu.cli -t 1` exports for
+    them (one voxtpu run for the module's export tests)."""
+    tmp = tmp_path_factory.mktemp("voxtpu_cli")
+    paths = _write_meshes(tmp)
     r = subprocess.run(
-        [sys.executable, "-m", "voxtpu.cli", *paths, *flags, "-t", "1",
-         "--device", "cpu", "--out-dir", str(tmp_path / "jax")],
-        capture_output=True, text=True, cwd=str(tmp_path), env=ENV, timeout=600)
+        [sys.executable, "-m", "voxtpu.cli", *paths, *EXPORT_FLAGS, "-t", "1",
+         "--device", "cpu", "--out-dir", str(tmp / "jax")],
+        capture_output=True, text=True, cwd=str(tmp), env=ENV, timeout=600)
     assert r.returncode == 0, r.stderr
-    assert cli.main([*paths, *flags, "-t", "2", "--device", "cpu",
+    return paths, tmp / "jax"
+
+
+def _check_exports(t, label, name, voxtpu_exports, tmp_path, capsys):
+    """The port's CLI with -t `t` prints its `label` scopes and exports,
+    under `name`, the meshes voxtpu's -t 1 exports under xla."""
+    paths, jax_dir = voxtpu_exports
+    assert cli.main([*paths, *EXPORT_FLAGS, "-t", t, "--device", "cpu",
                      "--out-dir", str(tmp_path / "port")]) == 0
     out = capsys.readouterr().out
-    for label in (r"CudaVox\(ring_a\.obj\)", r"CudaVox::planning",
-                  r"CudaVox::processing", r"CudaCSG", r"CudaJFA"):
-        assert re.search(rf"\[{label}\]: [\d.]+ ms", out), (label, out)
-    pairs = [("xla_ring_a.obj", "cuda_ring_a.obj"),
-             ("xla_ring_b.obj", "cuda_ring_b.obj"),
-             ("csg_vox_xla_merged.obj", "csg_vox_cuda_merged.obj"),
-             ("sdf_xla_merged.obj", "sdf_cuda_merged.obj"),
-             ("sdf_point_cloud_xla_merged.obj", "sdf_point_cloud_cuda_merged.obj")]
-    for jname, pname in pairs:
-        faces = _same_mesh(tmp_path / "jax" / jname, tmp_path / "port" / pname)
+    for scope in (rf"{label}Vox\(ring_a\.obj\)", rf"{label}Vox::planning",
+                  rf"{label}Vox::processing", rf"{label}CSG", rf"{label}JFA"):
+        assert re.search(rf"\[{scope}\]: [\d.]+ ms", out), (scope, out)
+    for jname in ("xla_ring_a.obj", "xla_ring_b.obj", "csg_vox_xla_merged.obj",
+                  "sdf_xla_merged.obj", "sdf_point_cloud_xla_merged.obj"):
+        faces = _same_mesh(jax_dir / jname,
+                           tmp_path / "port" / jname.replace("xla", name))
         assert faces > 0 or "point_cloud" in jname
+
+
+def test_cli_exports_match_voxtpu_cli(voxtpu_exports, tmp_path, capsys):
+    _check_exports("2", "Cuda", "cuda", voxtpu_exports, tmp_path, capsys)
+
+
+def test_cli_plain_exports_match_voxtpu_cli(voxtpu_exports, tmp_path, capsys):
+    _check_exports("1", "Plain", "plain", voxtpu_exports, tmp_path, capsys)
 
 
 def test_cli_reference_backend_matches_cuda_backend(tmp_path):
@@ -73,6 +91,19 @@ def test_cli_reference_backend_matches_cuda_backend(tmp_path):
     assert torch.equal(ref.grids[0].words, got.grids[0].words)
     assert ref.grids[0].count() > 0
     assert torch.equal(ref.sdf.view(torch.int32), got.sdf.view(torch.int32))
+
+
+@pytest.mark.parametrize("op", ["1", "3"])
+def test_cli_plain_backend_matches_reference_and_cuda(tmp_path, op):
+    paths = _write_meshes(tmp_path)
+    flags = ["-n", "64", "-p", op, "-s", "--device", "cpu"]
+    plain = cli.run([*paths, *flags, "-t", "1"])
+    assert plain.grids[0].count() > 0
+    for t in ("0", "2"):
+        other = cli.run([*paths, *flags, "-t", t])
+        for a, b in zip(plain.grids, other.grids):
+            assert torch.equal(a.words, b.words), t
+        assert torch.equal(plain.sdf.view(torch.int32), other.sdf.view(torch.int32)), t
 
 
 def test_cli_benchmark_mode(tmp_path, capsys):
@@ -91,7 +122,7 @@ def test_cli_device_cuda_without_a_card_exits_nonzero(tmp_path, capsys):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("t", ["1", "3"])
+@pytest.mark.parametrize("t", ["3"])
 def test_cli_unported_backends_exit_with_message(tmp_path, capsys, t):
     paths = _write_meshes(tmp_path)
     assert cli.main([paths[0], "-t", t, "--device", "cpu"]) != 0
@@ -111,6 +142,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "import voxtpu_torch.ops.soft_vox, voxtpu_torch.ops.soft_vox_fused\n"
         "import voxtpu_torch.ops.soft_vox_cuda, voxtpu_torch.models.fit\n"
         "import voxtpu_torch.models.csg_fit, voxtpu_torch.examples.fit_vertices\n"
+        "import voxtpu_torch.ops.vox_word_event, voxtpu_torch.ops.jfa_cuda\n"
         "rc = voxtpu_torch.cli.main(sys.argv[1:])\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "sys.exit(rc)\n"

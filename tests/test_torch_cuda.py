@@ -15,7 +15,8 @@ from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.models.fit import VoxelFit, soft_iou_loss
 from voxtpu_torch.ops import (jfa_cuda, soft_vox, soft_vox_cuda, soft_vox_fused,
-                              soft_vox_seg, vox_cuda, vox_slots_banded)
+                              soft_vox_seg, vox_cuda, vox_slots_banded,
+                              vox_word_event)
 from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
 from voxtpu_torch.ops.reference import jfa_ref, voxelize_ref
 from voxtpu_torch.ops.vox import voxelize
@@ -100,6 +101,92 @@ def test_flood_kernels_match_plain_and_oracle(dev, n):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     ref = torch.from_numpy(jfa_ref(occ, spec))
     assert torch.equal(jfa(occ_d, spec).cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def _we_args(plan):
+    return (plan.cells, plan.ws, plan.his, plan.masks, plan.cnts, plan.batch_tile)
+
+
+@pytest.mark.parametrize("n,tc,tb_sub", [(96, 128, 4), (128, 128, 4), (128, 64, 1),
+                                         (256, 128, 4)])
+def test_word_event_kernel_matches_plain_and_oracle(dev, n, tc, tb_sub):
+    """B12 on an icosphere's word-event plan (n = 96: G = 36, not a
+    power of two), against its plain version and the oracle; and the
+    whole per-call pipeline on the card."""
+    mesh = _mesh(lambda: procedural.icosphere(4, center=(0.1, -0.2, 0.3)), "ico")
+    spec = GridSpec.fit(mesh.coords, n)
+    plan = vox_word_event.WordEventVoxPlan(mesh, spec, dev, tc=tc, tb_sub=tb_sub)
+    before = vox_word_event.word_event_fill.launches
+    got = vox_word_event.word_event_fill(*_we_args(plan), n=n, tc=tc)
+    assert vox_word_event.word_event_fill.launches == before + 1
+    want = vox_word_event.word_event_fill_plain(*_we_args(plan), n=n, tc=tc)
+    assert torch.equal(got, want)
+    oracle = pack_bits(torch.from_numpy(voxelize_ref(mesh, spec)))
+    assert torch.equal(got.cpu(), oracle)
+    pipe = vox_word_event.DeviceVoxPipeline(mesh, spec, dev, tc=tc, tb_sub=tb_sub)
+    pipe.words()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the per-call path never waits for the card
+    try:
+        words, overflow = pipe.words()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(overflow) == 0
+    assert torch.equal(words.cpu(), oracle) and torch.equal(pipe().words, words)
+
+
+def test_word_event_kernel_on_random_events(dev):
+    """Random events, unique per (cell, word) as the plans make them,
+    with sorted supertiles, several batches each and inert lanes; and
+    a batch outside the supertiles, which the kernel skips."""
+    n, tc = 512, 128
+    nw, _, g, num_super, _ = vox_word_event._panel_geometry(n, tc)
+    rng = np.random.default_rng(4)
+    per, tb = 3, 512
+    bt = np.repeat(rng.choice(num_super, 40, replace=False), per)
+    bt.sort()
+    cells = np.full((bt.size, tb), -1, np.int32)
+    ws = np.zeros_like(cells)
+    for s in np.unique(bt):
+        rows = np.nonzero(bt == s)[0]
+        pick = rng.choice(tc * g * nw, int(0.8 * per * tb), replace=False)
+        flat = np.full(per * tb, -1, np.int64)
+        flat[rng.choice(per * tb, pick.size, replace=False)] = pick
+        live = flat >= 0
+        cells[rows] = np.where(live, flat // (g * nw), -1).reshape(per, tb)
+        ws[rows] = np.where(live, flat % (g * nw), 0).reshape(per, tb)
+    his = (ws // nw + 1) * nw
+    masks = rng.integers(-2**31, 2**31, cells.shape, dtype=np.int64).astype(np.int32)
+    cnts = rng.integers(0, 2, cells.shape).astype(np.int32)
+    bt = np.concatenate([bt, [num_super + 3]]).astype(np.int32)
+    extra = (np.arange(tb) % tc, np.zeros(tb), np.full(tb, nw), np.full(tb, -1),
+             np.ones(tb))  # live events on a supertile past the grid
+    arrays = [np.concatenate([a, e[None].astype(np.int32)])
+              for a, e in zip((cells, ws, his, masks, cnts), extra)]
+    arrays = [torch.from_numpy(a.reshape(-1, 4, 128)) for a in arrays]
+    args = (*arrays, torch.from_numpy(bt))
+    got = vox_word_event.word_event_fill(*(a.to(dev) for a in args), n=n, tc=tc)
+    want = vox_word_event.word_event_fill_plain(*args, n=n, tc=tc)
+    assert torch.equal(got.cpu(), want) and bool((want != 0).any())
+
+
+@pytest.mark.parametrize("n,band", [(128, 32), (544, jfa_cuda.ROW_BAND)])
+def test_flood_rows_kernel_matches_plain_and_b3(dev, n, band):
+    """B4 against its plain version and B3 at every stride (n = 544:
+    a band that does not divide n, and the odd stride 17)."""
+    occ = np.random.default_rng(n).random((n, n, n)) < 0.01
+    spec = GridSpec(n=n, origin=(0.1, -0.23, 0.37), voxel_size=0.0731)
+    org = jfa_cuda.org_tensor(spec, dev)
+    seed = jfa_init_seed(torch.from_numpy(occ).to(dev))
+    k = n // 2
+    while k >= 1:
+        before = jfa_cuda.flood_step_rows.launches
+        got = jfa_cuda.flood_step_rows(seed, org, k, band)
+        assert jfa_cuda.flood_step_rows.launches == before + 1
+        assert torch.equal(got, jfa_cuda.flood_step_rows_plain(seed, org, k, band)), k
+        assert torch.equal(got, jfa_cuda.flood_step(seed, org, k)), k
+        seed = got
+        k //= 2
 
 
 def test_kernels_reject_bad_arguments(dev):

@@ -48,7 +48,7 @@ def test_pack_unpack_match_voxtpu_with_bit31(n):
     np.testing.assert_array_equal(interop.words_to_numpy(got), ref)
     np.testing.assert_array_equal(unpack_bits(got).numpy(), occ)
     np.testing.assert_array_equal(
-        unpack_bits(interop.words_to_torch(ref)).numpy(), occ)
+        unpack_bits(interop.words_to_torch(ref, device="cpu")).numpy(), occ)
 
 
 def test_grid_container_matches_voxtpu():

@@ -21,9 +21,11 @@ import jax.numpy as jnp
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.ops.jfa import jfa as j_jfa
 from voxtpu.ops.jfa import jfa_init_seed as j_init_seed
-from voxtpu.ops.jfa_pallas import _flood_step_pallas, _sdf_from_seed_pallas
+from voxtpu.ops.jfa_pallas import (_flood_step_pallas, _flood_step_pallas_yblocked,
+                                   _sdf_from_seed_pallas)
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
 from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
+from voxtpu_torch.ops import jfa_cuda as J
 from voxtpu_torch.ops.jfa_cuda import (flood_step, jfa_cuda, org_tensor,
                                        sdf_from_seed)
 from voxtpu_torch.ops.reference import jfa_ref
@@ -75,6 +77,64 @@ def test_flood_step_and_final_plain_match_pallas_every_k():
     want = _sdf_from_seed_pallas(jnp.asarray(seed.numpy()), jnp.asarray(occ), jorg, n)
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert flood_step.launches == 0 and sdf_from_seed.launches == 0
+
+
+def test_flood_rows_plain_matches_yblocked_pallas():
+    """B4's plain version against voxtpu's `_flood_step_pallas_yblocked`
+    at n=32, band H = 8 and 16, strides 16, 8, 5, 1 (k < H, k = H,
+    H | k; voxtpu's own y-blocked test's org), fed the same seeds."""
+    n = 32
+    occ = np.random.default_rng(19).random((n, n, n)) < 0.03
+    org = torch.tensor([0.5, -2.0, 1.25, 0.0625], dtype=torch.float32)
+    jorg = jnp.asarray(org.numpy())
+    seed = jfa_init_seed(torch.from_numpy(occ))
+    for k in (16, 8, 5, 1):
+        for band in (8, 16):
+            got = J.flood_step_rows(seed, org, k, band)
+            want = np.asarray(_flood_step_pallas_yblocked(
+                jnp.asarray(seed.numpy()), jorg, k, n, band))
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k} H={band}")
+        seed = got
+    assert J.flood_step_rows.launches == 0
+
+
+def test_flood_rows_plain_matches_b3_where_voxtpu_asserts():
+    """n = 96 with H = 64: voxtpu asserts H | n; the port takes a short
+    last band. Every stride of the flood, on non-dyadic geometry."""
+    n = 96
+    occ = _sparse(n, 2, p=0.01)
+    org = org_tensor(GridSpec(n=n, **OTHER), "cpu")
+    seed = jfa_init_seed(torch.from_numpy(occ))
+    k = n // 2
+    while k >= 1:
+        got = J.flood_step_rows(seed, org, k, 64)
+        assert torch.equal(got, J.flood_step_plain(seed, org, k)), k
+        seed = got
+        k //= 2
+
+
+def test_flood_step_routing():
+    """B3 up to N = 512, B4 (voxtpu's y-blocked kernel) for 512 < N <=
+    1024, as voxtpu's `jfa_pallas` routes; nothing above."""
+    for n in (32, 96, 512):
+        assert J.flood_step_for(n) is J.flood_step
+        assert J.flood_step_for(n, plain=True) is J.flood_step_plain
+    for n in (544, 768, 1024):
+        assert J.flood_step_for(n) is J.flood_step_rows
+        assert J.flood_step_for(n, plain=True) is J.flood_step_rows_plain
+    with pytest.raises(ValueError, match="N <= 1024"):
+        J.flood_step_for(1056)
+    assert J.ROW_BAND == 256
+
+
+def test_jfa_plain_backend_matches_cuda_backend_and_oracle():
+    n = 64
+    occ = _ball(n, 0.3) ^ _sparse(n, 9, p=0.005)
+    spec = GridSpec(n=n, **OTHER)
+    got = jfa(torch.from_numpy(occ), spec, backend="plain").numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(jfa(torch.from_numpy(occ), spec,
+                                                         backend="cuda").numpy()))
+    np.testing.assert_array_equal(_bits(got), _bits(jfa_ref(occ, spec)))
 
 
 @pytest.mark.parametrize("n,occ_fn", [

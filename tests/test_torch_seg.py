@@ -182,7 +182,8 @@ def test_port_on_voxtpu_layout_matches_own_plan(seg):
     equal."""
     jp = seg["jplan"]
     plan = interop.seg_plan_from_voxtpu(seg["sp"], jp.batch_tile, jp.batch_panel,
-                                        jp.cells_b, jp.tblidx_b, jp.table_face_flat)
+                                        jp.cells_b, jp.tblidx_b, jp.table_face_flat,
+                                        device="cpu")
     c = torch.from_numpy(seg["coords"])
     assert torch.equal(soft_voxelize_seg(c, plan), soft_voxelize_seg(c, seg["plan"]))
     np.testing.assert_array_equal(_port_grad(plan, seg["coords"], seg["probe"]),

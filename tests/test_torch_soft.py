@@ -218,11 +218,12 @@ def test_port_on_voxtpu_layout_matches_own_plan(torus, engine):
     if engine == "fused":
         plan = interop.fused_plan_from_voxtpu(
             sp, jplan.cells_b, jplan.tblidx_b, jplan.batch_tile,
-            jplan.table_face_flat)
+            jplan.table_face_flat, device="cpu")
         fwd, own = soft_voxelize_fused, FusedSoftPlan(sp, "cpu")
     else:
         plan = interop.soft_cuda_plan_from_voxtpu(
-            sp, jplan.cells_b, jplan.batch_tile, np.asarray(jplan.perm_fwd))
+            sp, jplan.cells_b, jplan.batch_tile, np.asarray(jplan.perm_fwd),
+            device="cpu")
         fwd, own = soft_voxelize_cuda, SoftCudaPlan(sp, "cpu")
     c = torch.from_numpy(torus["coords"])
     assert torch.equal(fwd(c, plan), fwd(c, own))

@@ -80,7 +80,8 @@ def _jax_state(ref):
         rows=[np.asarray(r) for r in ref.rows], local=np.asarray(ref.local),
         batch_tile=np.asarray(ref.batch_tile),
         batch_basew=np.asarray(ref.batch_basew),
-        wide=None if ref.wide is None else [np.asarray(a) for a in ref.wide])
+        wide=None if ref.wide is None else [np.asarray(a) for a in ref.wide],
+        device="cpu")
 
 
 def test_plan_arrays_match_voxtpu(case):

@@ -4,11 +4,14 @@
     python3 tools/check_jfa_1024.py      # from the repository root
 
 A thick spherical shell plus a rod along z on a non-dyadic 1024^3 grid.
-Checks B3 against its plain version at k = 512, 64 and 1 and B5 against
-its plain version (bitwise), and times each B3 step (CUDA events; the
-first includes the kernel build) and three whole `jfa_cuda` calls.
-Needs about 67 GiB of device memory, nearly all of it the plain
-flood's temporaries. Exits non-zero if a check fails.
+At N = 1024 `jfa_cuda` runs B4 (the row-band flood step). At every
+stride k this holds B4 against B3 (bitwise) and, at k = 512, 64 and 1,
+against B4's band-wise plain version; then B5 against its plain
+version, and times each B4 and B3 step (CUDA events; the first
+includes the kernel build) and three whole `jfa_cuda` calls, which must
+launch B4 and not B3. The band-wise plain version keeps the peak to a
+band's temporaries (the whole-grid plain flood needed about 67 GiB).
+Exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -47,23 +50,34 @@ def main() -> int:
     org = jfa_cuda.org_tensor(spec, dev)
     seed = jfa_init_seed(occ)
     ok = True
-    step_ms = []
-    k = N // 2
-    while k >= 1:
+    b4_ms, b3_ms = [], []
+
+    def timed(fn, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        got = jfa_cuda.flood_step(seed, org, k)
+        out = fn(*args)
         end.record()
         end.synchronize()
-        step_ms.append(round(start.elapsed_time(end), 3))
+        return out, round(start.elapsed_time(end), 3)
+
+    k = N // 2
+    while k >= 1:
+        got, ms = timed(jfa_cuda.flood_step_rows, seed, org, k)
+        b4_ms.append(ms)
+        want, ms = timed(jfa_cuda.flood_step, seed, org, k)
+        b3_ms.append(ms)
+        same = torch.equal(got, want)
         if k in (512, 64, 1):
-            same = torch.equal(got, jfa_cuda.flood_step_plain(seed, org, k))
-            print(f"k={k}: B3 == plain: {same}")
-            ok &= same
+            plain = torch.equal(got, jfa_cuda.flood_step_rows_plain(seed, org, k))
+            print(f"k={k}: B4 == B3: {same}, B4 == plain: {plain}")
+            same &= plain
+        ok &= same
         seed = got
+        del want
         k //= 2
-    print("B3 step ms (k=512..1):", step_ms)
+    print("B4 step ms (k=512..1):", b4_ms)
+    print("B3 step ms (k=512..1):", b3_ms)
     sdf = jfa_cuda.sdf_from_seed(seed, occ, org)
     want = jfa_cuda.sdf_from_seed_plain(seed, occ, org)
     same = torch.equal(sdf.view(torch.int32), want.view(torch.int32))
@@ -72,12 +86,17 @@ def main() -> int:
     del want
     print(f"finite share {float(torch.isfinite(sdf).float().mean())}, "
           f"occupied {int(occ.sum())}")
+    b3, b4 = jfa_cuda.flood_step.launches, jfa_cuda.flood_step_rows.launches
     for rep in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         jfa_cuda.jfa_cuda(occ, spec)
         torch.cuda.synchronize()
         print(f"jfa_cuda wall ms, run {rep}: {(time.perf_counter() - t0) * 1e3:.3f}")
+    routed = (jfa_cuda.flood_step.launches == b3
+              and jfa_cuda.flood_step_rows.launches == b4 + 3 * (N.bit_length() - 1))
+    print("jfa_cuda ran B4 at every step and B3 never:", routed)
+    ok &= routed
     print(f"peak device memory GiB {torch.cuda.max_memory_allocated() / 2**30:.3f}")
     return 0 if ok else 1
 

@@ -67,8 +67,13 @@ SIGNATURES = {
     "vt_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # local, xs, batch_tile, B, tb, tc, nw, num_tiles, out, stream
     "vt_wide_fill": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # cells, ws, his, masks, cnts, batch_tile, num_batches, tb, tc, nw, g,
+    # num_super, wpad, out, stream
+    "vt_word_event_fill": [_P] * 6 + [_I] * 7 + [_P, _P],
     # seed, out, org, n, k, stream
     "vt_flood_step": [_P, _P, _P, _I, _I, _P],
+    # seed, out, org, n, k, band, stream
+    "vt_flood_step_rows": [_P, _P, _P, _I, _I, _I, _P],
     # seed, occ, org, out, n, stream
     "vt_sdf_from_seed": [_P, _P, _P, _P, _I, _P],
 }

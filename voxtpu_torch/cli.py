@@ -9,9 +9,11 @@ flag         meaning
 ==========  ======================================================
 filenames    input meshes (positional or -i)
 -n           voxels per side (default 32)
--t           backend 0=reference (NumPy oracle) 2=cuda (the banded
-             voxelizer and the JFA flood on the hand-written kernels;
-             default). 1 (xla) and 3 (native) are not ported yet.
+-t           backend 0=reference (NumPy oracle) 1=plain (voxtpu's xla:
+             FragmentPlan + resolve, and the JFA flood's plain torch
+             versions) 2=cuda (the banded voxelizer and the JFA flood
+             on the hand-written kernels; default). 3 (native) is not
+             ported yet.
 -o           output filename (default out.obj)
 -p           CSG op 0=void 1=union 2=intersection 3=difference
 -e           export phase OBJs into --out-dir
@@ -26,7 +28,9 @@ filenames    input meshes (positional or -i)
 
 Profiling scopes print ``[Label]: X ms`` lines (``CudaVox(mesh.obj)``,
 ``CudaVox::planning``, ``CudaVox::processing``, ``CudaCSG``,
-``CudaJFA``; ``Ref*`` for -t 0). voxtpu's ``--trace`` is not ported yet.
+``CudaJFA``; ``Plain*`` for -t 1, ``Ref*`` for -t 0). Exports are
+named after the backend (``cuda_``, ``plain_``, ``reference_``).
+voxtpu's ``--trace`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,9 +45,9 @@ import torch
 
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
 
-BACKENDS = {0: "reference", 1: "xla", 2: "cuda", 3: "native"}
-PORTED = (0, 2)
-BACKEND_LABEL = {0: "RefVox", 2: "CudaVox"}
+BACKENDS = {0: "reference", 1: "plain", 2: "cuda", 3: "native"}
+PORTED = (0, 1, 2)
+BACKEND_LABEL = {0: "RefVox", 1: "PlainVox", 2: "CudaVox"}
 CSG_OPS = {0: "void", 1: "union", 2: "intersection", 3: "difference"}
 
 
@@ -101,7 +105,8 @@ def run(argv=None) -> PipelineResult:
         raise UsageError("Thread per voxel must be a multiple of 16")
     if args.type not in PORTED:
         raise UsageError(f"-t {args.type} ({BACKENDS[args.type]}) is not "
-                         "ported yet; use -t 0 (reference) or -t 2 (cuda)")
+                         "ported yet; use -t 0 (reference), -t 1 (plain) or "
+                         "-t 2 (cuda)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise UsageError("--device cuda: no CUDA device is available "
@@ -120,7 +125,7 @@ def _run_pipeline(args, filenames, device) -> PipelineResult:
     from voxtpu_torch.mesh.obj_io import export_mesh, import_mesh
     from voxtpu_torch.ops.csg import csg
     from voxtpu_torch.ops.jfa import jfa
-    from voxtpu_torch.ops.vox import voxelize
+    from voxtpu_torch.ops.vox import FragmentPlan, voxelize
     from voxtpu_torch.ops.vox_cuda import TILE_CELLS
     from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
     from voxtpu_torch.utils.profiling import ProfilingScope
@@ -142,14 +147,17 @@ def _run_pipeline(args, filenames, device) -> PipelineResult:
     bm_grid = VoxelGrid.zeros(spec, device)
     sdf = None
 
-    # The banded plan is rebuilt every iteration inside the profiled
-    # scope, mirroring the reference's per-call work-queue build
-    # (`vox/tiled.cu:504-547`).
+    # The plan (banded, or the plain route's triangle buckets) is
+    # rebuilt every iteration inside the profiled scope, mirroring the
+    # reference's per-call work-queue build (`vox/tiled.cu:504-547`).
     def _vox_profiled(mesh):
-        if backend == "cuda":
+        if backend in ("cuda", "plain"):
             with ProfilingScope(f"{vox_label}::planning"):
-                plan = BandedSlotVoxPipeline(mesh, spec, device,
-                                             tc=args.block_size or TILE_CELLS)
+                if backend == "cuda":
+                    plan = BandedSlotVoxPipeline(mesh, spec, device,
+                                                 tc=args.block_size or TILE_CELLS)
+                else:
+                    plan = FragmentPlan(mesh, spec, device)
             with ProfilingScope(f"{vox_label}::processing") as pp:
                 grid = voxelize(mesh, spec, backend, device=device, plan=plan)
                 pp.observe(grid.words)

@@ -1,8 +1,10 @@
 // Jump Flooding kernels of the SDF op, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of voxtpu/ops/jfa_pallas.py:
-//   B3  _step_kernel   (vt_flood_step): one flood step at stride k
-//   B5  _final_kernel  (vt_sdf_from_seed): signed squared distance
+// Replaces three Pallas TPU kernels of voxtpu/ops/jfa_pallas.py:
+//   B3  _step_kernel           (vt_flood_step): one flood step at stride k
+//   B4  _step_kernel_yblocked  (vt_flood_step_rows): the same step in
+//                              (1, H, n) row bands, for 512 < N <= 1024
+//   B5  _final_kernel          (vt_sdf_from_seed): signed squared distance
 //
 // State is one int32 seed grid, 10-bit packed (z << 20 | y << 10 | x),
 // -1 where no seed is known; N <= 1024.
@@ -83,6 +85,109 @@ __global__ void flood_step_kernel(const int* __restrict__ seed,
   out[i] = best;
 }
 
+// B4. The TPU kernel exists because at N = 1024 the full-plane step's
+// ~26 live (n, n) candidate planes exceed VMEM: it computes (1, H, n)
+// row bands from nine (1, H, n) source bands, one per (dz, dy), with
+// the dy shift in block index maps and the dx shift as lane rolls. On
+// this card nothing has to fit on chip, so the band keeps only its
+// scheduling role: one block per (x chunk of kCols, band of `band`
+// rows, z), walking its band kRows rows at a time. Each pass stages in
+// shared memory the source window of its (kRows, kCols) tile for the
+// three planes z - k, z, z + k: per axis the rows (columns) tile +
+// dy*k for dy = -1, 0, 1, which is one window of tile + 2k when k is
+// below the tile and three tile-sized windows otherwise; -1 outside
+// the grid. The 26 candidates are then read from shared memory.
+// Selection is B3's, term for term and in its order, so the result is
+// bitwise B3's at every k and every band height; n and the band need
+// not divide each other.
+//
+// Bound on this card: like B3, the candidate unpack and distance (~14
+// flops per candidate that holds a seed). Device memory: every staged
+// element is read once per pass, 27 reads a voxel at large k (B3's 27,
+// now coalesced), fewer at small k where the windows overlap. The
+// staging loops step by the tile sizes, so no address needs a division
+// by a runtime value: integer division dominated a flat-index staging
+// loop at large k.
+constexpr int kRows = 8;
+constexpr int kCols = 32;
+
+__device__ __forceinline__ int window_len(int tile, int k) {
+  return k < tile ? tile + 2 * k : 3 * tile;
+}
+
+// Window slot of tile offset t shifted by d*k, d in {-1, 0, 1}.
+__device__ __forceinline__ int window_slot(int t, int d, int tile, int k) {
+  return k < tile ? t + d * k + k : (d + 1) * tile + t;
+}
+
+// Tile offset + shift of window slot s (the inverse of window_slot).
+__device__ __forceinline__ int window_offset(int s, int tile, int k) {
+  return k < tile ? s - k : s % tile + (s / tile - 1) * k;
+}
+
+__global__ void flood_step_rows_kernel(const int* __restrict__ seed,
+                                       int* __restrict__ out,
+                                       const float* __restrict__ org, int n,
+                                       int k, int band) {
+  __shared__ int stage[3 * (3 * kRows) * (3 * kCols)];
+  const int x0 = blockIdx.x * kCols;
+  const int y_band = blockIdx.y * band;
+  const int y_end = min(y_band + band, n);
+  const int z = blockIdx.z;
+  const int tx = threadIdx.x % kCols;
+  const int ty = threadIdx.x / kCols;
+  const int rl = window_len(kRows, k);
+  const int cl = window_len(kCols, k);
+  const long long nn = (long long)n * n;
+  const float ox = org[0], oy = org[1], oz = org[2], vs = org[3];
+  const int x = x0 + tx;
+  const float px = __fadd_rn(ox, __fmul_rn((float)x, vs));
+  const float pz = __fadd_rn(oz, __fmul_rn((float)z, vs));
+
+  for (int y0 = y_band; y0 < y_end; y0 += kRows) {
+    __syncthreads();  // the previous pass has read the stage
+    // Thread (ty, tx) stages rows ty, ty + kRows, ... and columns tx,
+    // tx + kCols, ... of each plane's window: no division by a runtime
+    // value (kRows and kCols are powers of two), coalesced along x.
+    for (int dzi = 0; dzi < 3; ++dzi) {
+      const int zn = z + (dzi - 1) * k;
+      const bool zok = zn >= 0 && zn < n;
+      for (int sr = ty; sr < rl; sr += kRows) {
+        const int yn = y0 + window_offset(sr, kRows, k);
+        const bool yok = zok && yn >= 0 && yn < n;
+        const int* src = seed + (yok ? zn * nn + (long long)yn * n : 0);
+        int* dst = stage + (dzi * rl + sr) * cl;
+        for (int sc = tx; sc < cl; sc += kCols) {
+          const int xn = x0 + window_offset(sc, kCols, k);
+          dst[sc] = yok && xn >= 0 && xn < n ? src[xn] : -1;
+        }
+      }
+    }
+    __syncthreads();
+    const int y = y0 + ty;
+    if (y >= y_end || x >= n) continue;
+    const float py = __fadd_rn(oy, __fmul_rn((float)y, vs));
+    const int* own = stage + (rl + window_slot(ty, 0, kRows, k)) * cl;
+    int best = own[window_slot(tx, 0, kCols, k)];
+    float best_d2 = seed_d2(best, px, py, pz, ox, oy, oz, vs);
+    for (int dz = -1; dz <= 1; ++dz) {
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int* row = stage + ((dz + 1) * rl + window_slot(ty, dy, kRows, k)) * cl;
+        for (int dx = -1; dx <= 1; ++dx) {
+          if (dz == 0 && dy == 0 && dx == 0) continue;
+          const int cand = row[window_slot(tx, dx, kCols, k)];
+          const float d2 = seed_d2(cand, px, py, pz, ox, oy, oz, vs);
+          if (d2 < best_d2) {
+            best_d2 = d2;
+            best = cand;
+          }
+        }
+      }
+    }
+    out[z * nn + (long long)y * n + x] = best;
+  }
+}
+
 __global__ void sdf_from_seed_kernel(const int* __restrict__ seed,
                                      const unsigned char* __restrict__ occ,
                                      const float* __restrict__ org,
@@ -114,6 +219,14 @@ extern "C" int vt_flood_step(const void* seed, void* out, const void* org,
                              int n, int k, void* stream) {
   flood_step_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)seed, (int*)out, (const float*)org, n, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vt_flood_step_rows(const void* seed, void* out, const void* org,
+                                  int n, int k, int band, void* stream) {
+  const dim3 grid((n + kCols - 1) / kCols, (n + band - 1) / band, n);
+  flood_step_rows_kernel<<<grid, kRows * kCols, 0, (cudaStream_t)stream>>>(
+      (const int*)seed, (int*)out, (const float*)org, n, k, band);
   return (int)cudaGetLastError();
 }
 

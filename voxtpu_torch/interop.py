@@ -11,6 +11,8 @@ against voxtpu's.
 - the banded pipeline's per-call state: the nine slot coordinate rows,
   `local`, `batch_tile`, `batch_basew` and the `wide` tuple of
   `voxtpu.ops.vox_slots_banded.BandedSlotVoxPipeline`;
+- the word-event plan's event panels (`voxtpu.ops.vox_pallas_we.
+  WordEventVoxPlan`);
 - the soft engines' slot layouts (`voxtpu.ops.soft_vox_fused.
   FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`,
   `voxtpu.ops.soft_vox_seg.SegSoftPlan`);
@@ -23,14 +25,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.models.fit import FitState
 from voxtpu_torch.ops.soft_vox_cuda import SoftCudaPlan
 from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
 from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedState
+from voxtpu_torch.ops.vox_word_event import WordEventVoxPlan
 
 
-def words_to_torch(words: np.ndarray, device="cpu") -> torch.Tensor:
+def words_to_torch(words: np.ndarray, *, device) -> torch.Tensor:
     """uint32 words -> int32 tensor with the same bits."""
     a = np.ascontiguousarray(words)
     if a.dtype != np.uint32:
@@ -53,8 +57,8 @@ def _f32(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(device)
 
 
-def banded_state(rows, local, batch_tile, batch_basew, wide,
-                 device="cpu") -> BandedState:
+def banded_state(rows, local, batch_tile, batch_basew, wide, *,
+                 device) -> BandedState:
     """The port's banded per-call state from voxtpu's pipeline arrays.
 
     `rows` are its nine (B, tb_sub, 128) float32 arrays, `local`,
@@ -76,8 +80,28 @@ def banded_state(rows, local, batch_tile, batch_basew, wide,
                        wide=port_wide)
 
 
+def word_event_plan_from_voxtpu(plan_arrays, *, device) -> WordEventVoxPlan:
+    """The port's word-event plan on voxtpu's event panels.
+
+    `plan_arrays` is voxtpu's `WordEventVoxPlan`, or any object with its
+    attribute names: `spec` (n, origin, voxel_size), `tc`, `num_events`,
+    `num_fragments`, the (B, tb_sub, 128) panels `cells`, `ws`, `his`,
+    `masks`, `cnts`, and `batch_tile`, `flags`, `tile_mask`. The masks'
+    32 bits become an int32 view, with no arithmetic."""
+    p = plan_arrays
+    spec = GridSpec(n=int(p.spec.n), origin=tuple(float(v) for v in p.spec.origin),
+                    voxel_size=float(p.spec.voxel_size))
+    masks = np.ascontiguousarray(np.asarray(p.masks)).view(np.int32)
+    cells, ws, his, cnts, batch_tile, flags, tile_mask = (
+        np.asarray(getattr(p, k)) for k in ("cells", "ws", "his", "cnts", "batch_tile",
+                                            "flags", "tile_mask"))
+    return WordEventVoxPlan.from_layout(
+        spec, device, cells, ws, his, masks, cnts, batch_tile, flags, tile_mask,
+        tc=int(p.tc), num_events=int(p.num_events), num_fragments=int(p.num_fragments))
+
+
 def fused_plan_from_voxtpu(soft_plan, cells_b, tblidx_b, batch_tile,
-                           table_face_flat, device="cpu") -> FusedSoftPlan:
+                           table_face_flat, *, device) -> FusedSoftPlan:
     """The port's fused plan on voxtpu's `FusedSoftPlan` layout: its
     `cells_b`, `tblidx_b`, `batch_tile` and `table_face_flat`, over the
     port's soft plan of the same mesh. voxtpu's FIRST/LAST flags and
@@ -87,7 +111,7 @@ def fused_plan_from_voxtpu(soft_plan, cells_b, tblidx_b, batch_tile,
 
 
 def seg_plan_from_voxtpu(soft_plan, batch_tile, batch_panel, cells_b, tblidx_b,
-                         table_face_flat, device="cpu") -> SegSoftPlan:
+                         table_face_flat, *, device) -> SegSoftPlan:
     """The port's seg plan on voxtpu's `SegSoftPlan` layout: its
     `batch_tile`, `batch_panel`, `cells_b`, `tblidx_b` and
     `table_face_flat`, over the port's soft plan of the same mesh (whose
@@ -98,8 +122,8 @@ def seg_plan_from_voxtpu(soft_plan, batch_tile, batch_panel, cells_b, tblidx_b,
                                    cells_b, tblidx_b, table_face_flat)
 
 
-def soft_cuda_plan_from_voxtpu(soft_plan, cells_b, batch_tile, perm_fwd,
-                               device="cpu") -> SoftCudaPlan:
+def soft_cuda_plan_from_voxtpu(soft_plan, cells_b, batch_tile, perm_fwd, *,
+                               device) -> SoftCudaPlan:
     """The port's per-fragment plan on voxtpu's `SoftPallasPlan` layout.
 
     `perm_fwd[j]` is the source of slot j in voxtpu's sort of the
@@ -112,7 +136,7 @@ def soft_cuda_plan_from_voxtpu(soft_plan, cells_b, batch_tile, perm_fwd,
     return SoftCudaPlan.from_layout(soft_plan, device, cells_b, batch_tile, src)
 
 
-def fit_state_from_voxtpu(coords, count, mu, nu, step, device="cpu") -> FitState:
+def fit_state_from_voxtpu(coords, count, mu, nu, step, *, device) -> FitState:
     """The port's FitState from voxtpu's `VoxelFit` state leaves: (V, 3)
     float32 coordinates, optax Adam's count (int32), mu and nu, and the
     int32 step. `torch.optim.Adam`'s state holds the same three values."""

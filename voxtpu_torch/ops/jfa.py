@@ -10,9 +10,10 @@ seeds 0, interior positive, exterior negative; unreached voxels keep
 no seed is known, so N <= 1024. voxtpu's wide (hi, lo) encoding for
 larger grids is not ported yet.
 
-Backends: ``"reference"`` (the NumPy oracle) and ``"cuda"`` (the flood
+Backends: ``"reference"`` (the NumPy oracle), ``"cuda"`` (the flood
 of `ops/jfa_cuda.py`: kernels on CUDA tensors, their plain torch
-versions on the CPU).
+versions on the CPU) and ``"plain"`` (voxtpu's ``"xla"``: the same
+flood through the plain versions on the grid's device).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
 
-BACKENDS = ("reference", "cuda")
+BACKENDS = ("reference", "plain", "cuda")
 
 _OFFSETS = tuple(
     (dz, dy, dx)
@@ -79,4 +80,8 @@ def jfa(grid: VoxelGrid | torch.Tensor, spec: GridSpec | None = None,
         from voxtpu_torch.ops.jfa_cuda import jfa_cuda
 
         return jfa_cuda(occ, spec)
+    if backend == "plain":
+        from voxtpu_torch.ops.jfa_cuda import jfa_plain
+
+        return jfa_plain(occ, spec)
     raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")

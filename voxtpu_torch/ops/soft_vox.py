@@ -227,7 +227,7 @@ def make_soft_plan(mesh: Mesh, spec: GridSpec, pad_window: int = 1) -> FragmentP
     (`soft_vox.py:160-237`, line for line). `pad_window` widens the
     windows so that sigmoid tails and small vertex motions stay covered;
     fragment count grows about quadratically with it."""
-    plan = FragmentPlan()
+    plan = FragmentPlan.__new__(FragmentPlan)  # a bare plan, filled below
     plan.spec = spec
     plan.faces_array = np.asarray(mesh.faces, np.int32)
 

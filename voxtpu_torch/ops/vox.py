@@ -1,21 +1,28 @@
 """Solid voxelization — host windows, the edge function, and dispatch.
 
-Port of the parts of `voxtpu/ops/vox.py` that the port's voxelizer
-uses: `_triangle_windows` (per-triangle YZ raster windows, NumPy),
-`_edge_zy` (the reference edge function, any array type) and the
-`voxelize()` entry point. Semantics are the reference's parity
-voxelizer (`vox/sequential.cpp:18-61`): per covered YZ cell, XOR-toggle
-the x row from the plane intersection to the +x edge.
+Port of `voxtpu/ops/vox.py`: `_triangle_windows` (per-triangle YZ
+raster windows, NumPy), the triangle buckets `FragmentPlan`, `_edge_zy`
+(the reference edge function, any array type), `emit_fragments`,
+`resolve_fragments` and the `voxelize()` entry point. Semantics are
+the reference's parity voxelizer (`vox/sequential.cpp:18-61`): per
+covered YZ cell, XOR-toggle the x row from the plane intersection to
+the +x edge.
 
 Backends:
 
 - ``"reference"``: the NumPy oracle (`ops/reference.py`), packed on
   the requested device.
+- ``"plain"`` (voxtpu's ``"xla"``): `FragmentPlan` buckets,
+  `emit_fragments` and `resolve_fragments`, torch ops on any device.
+- ``"word_event"`` (voxtpu's ``"pallas"``, its default route): the
+  word-event voxelizer (`ops/vox_word_event.py`), kernel B12 on CUDA
+  tensors.
 - ``"cuda"``: the banded slot pipeline (`ops/vox_slots_banded.py`),
-  the pipeline voxtpu's benchmark headlines. On CUDA tensors it runs
-  the hand-written kernels; on the CPU their plain torch versions.
-  (voxtpu's own ``-t 2`` routes to its word-event kernel instead; both
-  pipelines produce the same grid bit for bit.)
+  the pipeline voxtpu's benchmark headlines, kernels B1 and B2. The
+  port's CLI ``-t 2`` takes it; all four backends give the same grid
+  bit for bit.
+
+Kernels run on CUDA tensors; on the CPU their plain torch versions.
 """
 
 from __future__ import annotations
@@ -23,10 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
+from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
 
-BACKENDS = ("reference", "cuda")
+BACKENDS = ("reference", "plain", "word_event", "cuda")
 
 
 def _triangle_windows(mesh: Mesh, spec: GridSpec):
@@ -62,17 +69,50 @@ def _window_classes(wmax: int) -> list[int]:
 
 
 class FragmentPlan:
-    """Triangle buckets of one (mesh, grid) pair, host NumPy.
+    """Triangle buckets of one (mesh, grid) pair (`vox.py:84-123`).
 
-    The container of voxtpu's `FragmentPlan` (`voxtpu/ops/vox.py:84`):
-    `spec`, `buckets` and `num_fragments`. `make_soft_plan` fills it;
-    each bucket is ``(W, None, None, None, start_y, start_z,
-    face_index)`` with int32 rows padded by `_pad_granular`, so that the
-    tests compare it with voxtpu's bucket for bucket."""
+    Triangles are grouped on the host by YZ raster window W (the class
+    ladder of `_window_classes`); each bucket ``(W, v0, v1, v2,
+    start_y, start_z)`` holds its (T, 3) float32 vertex rows and int32
+    window starts as tensors on `device`, T padded by `_pad_granular`
+    (pad rows: zero vertices starting at N, which emit nothing).
+    `num_fragments` counts the candidate cells, sum of T * W^2; `origin`
+    and `voxel_size` are the grid's float32 tensors on `device`, made
+    once so that an emit copies nothing to the device.
+
+    `make_soft_plan` builds a bare plan through ``FragmentPlan.__new__``
+    and fills it with the soft engines' buckets ``(W, None, None, None,
+    start_y, start_z, face_index)`` as host arrays. voxtpu's
+    `max_window` argument is unused there and is not carried over."""
 
     spec: GridSpec
     buckets: list
     num_fragments: int
+
+    def __init__(self, mesh: Mesh, spec: GridSpec, device):
+        v0, v1, v2, start_y, start_z, w = _triangle_windows(mesh, spec)
+        self.spec = spec
+        self.device = torch.empty(0, device=device).device
+        self.origin = spec.origin_tensor(self.device)
+        self.voxel_size = spec.voxel_size_tensor(self.device)
+        self.buckets = []
+
+        def on_device(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        lo = 0
+        for wclass in _window_classes(max(int(w.max(initial=1)), 1)):
+            idx = np.nonzero((w > lo) & (w <= wclass))[0]
+            if idx.size:
+                pad = _pad_granular(idx.size)
+                self.buckets.append((
+                    int(min(wclass, spec.n)),
+                    *(on_device(_pad_rows(v[idx], pad)) for v in (v0, v1, v2)),
+                    on_device(_pad_rows(start_y[idx], pad, fill=spec.n)),
+                    on_device(_pad_rows(start_z[idx], pad, fill=spec.n)),
+                ))
+            lo = wclass
+        self.num_fragments = sum(b[1].shape[0] * b[0] ** 2 for b in self.buckets)
 
 
 def _next_pow2(x: int) -> int:
@@ -102,30 +142,150 @@ def _edge_zy(py, pz, qy, qz, y, z):
     return (z - pz) * (qy - py) - (y - py) * (qz - pz)
 
 
+def emit_fragments(v0, v1, v2, start_y, start_z, *, window: int, n: int,
+                   origin: torch.Tensor, vs: torch.Tensor):
+    """Rasterize one bucket (`vox.py:161-215`, term for term): the W^2
+    candidate cells of each triangle's window, offset-major as (W^2,
+    T), flattened. Returns (cell, x_entry) int32; an invalid candidate
+    gets cell n*n (sorts last) and x 0. `origin` (3,) and `vs` () are
+    float32 tensors on the bucket's device: eager torch rounds each
+    operation on its own, as the oracle does."""
+    w = window
+    a0, a1, a2 = v0[:, 0], v0[:, 1], v0[:, 2]
+    b1, b2 = v1[:, 1], v1[:, 2]
+    c1, c2 = v2[:, 1], v2[:, 2]
+    u0, u1, u2 = v1[:, 0] - a0, b1 - a1, b2 - a2
+    t0, t1, t2 = v2[:, 0] - a0, c1 - a1, c2 - a2
+    normal_x = u1 * (c2 - b2) - u2 * (c1 - b1)
+    one = torch.ones((), dtype=torch.float32, device=v0.device)
+    sign = torch.where(normal_x >= 0, one, -one)
+    A = u1 * t2 - u2 * t1
+    B = u2 * t0 - u0 * t2
+    C = u0 * t1 - u1 * t0
+    D = A * a0 + B * a1 + C * a2
+
+    k = torch.arange(w * w, dtype=torch.int32, device=v0.device).view(-1, 1)
+    ys = start_y.view(1, -1) + k % w
+    zs = start_z.view(1, -1) + k // w
+    cy = origin[1] + (ys.to(torch.float32) * vs + vs / 2)
+    cz = origin[2] + (zs.to(torch.float32) * vs + vs / 2)
+
+    e0 = _edge_zy(a1, a2, b1, b2, cy, cz) * sign
+    e1 = _edge_zy(b1, b2, c1, c2, cy, cz) * sign
+    e2 = _edge_zy(c1, c2, a1, a2, cy, cz) * sign
+    inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)
+    inside &= (ys >= 0) & (ys < n) & (zs >= 0) & (zs < n)
+
+    intersection = (D - B * cy - C * cz) / A
+    xf = (intersection - origin[0]) / vs
+    valid = inside & torch.isfinite(xf) & (xf < n)
+    # Truncation toward zero, clipped to [0, n - 1]; clamping to [-1, n]
+    # first keeps the conversion in range and changes no clipped result.
+    xf = torch.where(valid, xf, torch.zeros_like(xf)).clamp(-1.0, float(n))
+    x_entry = xf.to(torch.int32).clamp(0, n - 1)
+    cell = torch.where(valid, zs * n + ys, torch.full_like(ys, n * n))
+    x_entry = torch.where(valid, x_entry, torch.zeros_like(x_entry))
+    return cell.reshape(-1), x_entry.reshape(-1)
+
+
+def fragments_from_plan(plan: FragmentPlan):
+    """Emit and concatenate every bucket's fragments (`vox.py:329-344`);
+    one sentinel fragment for a plan without buckets."""
+    spec, dev = plan.spec, plan.device
+    parts = [emit_fragments(v0, v1, v2, sy, sz, window=window, n=spec.n,
+                            origin=plan.origin, vs=plan.voxel_size)
+             for window, v0, v1, v2, sy, sz in plan.buckets]
+    if not parts:
+        return (torch.full((1,), spec.n * spec.n, dtype=torch.int32, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _cumxor(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive XOR prefix scan of a 1-D integer tensor (`vox.py:223-233`):
+    Hillis-Steele doubling, log2(len) shifted XORs (torch has no
+    cumulative XOR)."""
+    s = 1
+    while s < x.shape[0]:
+        x = x ^ torch.cat([x.new_zeros(s), x[:-s]])
+        s *= 2
+    return x
+
+
+def suffix_masks(key: torch.Tensor) -> torch.Tensor:
+    """int32 bits of 0xFFFFFFFF << (key & 31) for integer keys."""
+    return torch.full(key.shape, -1, dtype=torch.int32, device=key.device) << (
+        key & 31).to(torch.int32)
+
+
+def resolve_fragments(cells: torch.Tensor, x_entry: torch.Tensor, *,
+                      n: int) -> torch.Tensor:
+    """Packed (n, n, n/32) int32 words from fragments (`vox.py:237-279`):
+    word q of cell c is the XOR over the cell's fragments of their
+    suffix masks. One sort by the int64 key cell*n + x (so by (cell,
+    word)), an XOR scan of the in-word masks read at the (cell, word)
+    segment bounds, and the parity of the fragments in earlier words
+    (the carry). Sentinel cells (n*n) sort past every probe."""
+    nw = n // WORD_BITS
+    key, _ = torch.sort(cells.to(torch.int64) * n + x_entry.to(torch.int64))
+    probes = torch.arange(n * n * nw + 1, dtype=torch.int64, device=key.device)
+    bounds = torch.searchsorted(key >> 5, probes)
+    scan0 = torch.cat([key.new_zeros(1, dtype=torch.int32),
+                       _cumxor(suffix_masks(key))])
+    inword = (scan0[bounds[1:]] ^ scan0[bounds[:-1]]).view(-1, nw)
+    b2 = bounds[:-1].view(-1, nw)
+    carry_odd = ((b2 - b2[:, :1]) & 1).to(torch.int32)
+    return (inword ^ -carry_odd).view(n, n, nw)
+
+
+def _check_plan(plan, kinds, backend, spec, device) -> None:
+    if not isinstance(plan, kinds):
+        raise TypeError(f"backend {backend!r} takes a plan of type "
+                        f"{' or '.join(k.__name__ for k in kinds)}, not "
+                        f"{type(plan).__name__}")
+    if plan.spec != spec:
+        # Fragments are emitted in plan.spec's coordinates while the
+        # output grid uses `spec`: a mismatch would place the mesh in a
+        # silently wrong grid.
+        raise ValueError(f"plan was built for {plan.spec}, not the requested {spec}")
+    if plan.device != device:
+        raise ValueError(f"plan lives on {plan.device}, not the requested {device}")
+
+
 def voxelize(mesh: Mesh, spec: GridSpec, backend: str = "cuda", *,
              device, plan=None) -> VoxelGrid:
     """Solid-voxelize `mesh` into a packed VoxelGrid on `device`.
 
-    `plan` is a prebuilt `BandedSlotVoxPipeline` for the ``"cuda"``
-    backend (its device and spec must match)."""
+    `plan`, when given, must match `spec` and `device`: a
+    `FragmentPlan` for ``"plain"`` or ``"word_event"``, a
+    `WordEventVoxPlan` for ``"word_event"``, a `BandedSlotVoxPipeline`
+    for ``"cuda"``."""
     spec.num_words  # packed output: raises early unless N % 32 == 0
     device = torch.empty(0, device=device).device  # "cuda" -> "cuda:0"
-    if plan is not None:
-        if plan.spec != spec:
-            raise ValueError(
-                f"plan was built for {plan.spec}, not the requested {spec}")
-        if plan.device != device:
-            raise ValueError(
-                f"plan lives on {plan.device}, not the requested {device}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
     if backend == "reference":
         from voxtpu_torch.ops.reference import voxelize_ref
 
         occ = torch.from_numpy(voxelize_ref(mesh, spec)).to(device)
         return VoxelGrid.from_dense(occ, spec)
-    if backend == "cuda":
-        from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
-
+    if backend == "plain":
         if plan is None:
-            plan = BandedSlotVoxPipeline(mesh, spec, device)
-        return plan()
-    raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
+            plan = FragmentPlan(mesh, spec, device)
+        _check_plan(plan, (FragmentPlan,), backend, spec, device)
+        words = resolve_fragments(*fragments_from_plan(plan), n=spec.n)
+        return VoxelGrid(words, spec.origin_tensor(device),
+                         spec.voxel_size_tensor(device))
+    if backend == "word_event":
+        from voxtpu_torch.ops.vox_word_event import (WordEventVoxPlan,
+                                                     voxelize_word_event)
+
+        if plan is not None:
+            _check_plan(plan, (FragmentPlan, WordEventVoxPlan), backend, spec, device)
+        return voxelize_word_event(mesh, spec, device, plan=plan)
+    from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
+
+    if plan is None:
+        plan = BandedSlotVoxPipeline(mesh, spec, device)
+    _check_plan(plan, (BandedSlotVoxPipeline,), backend, spec, device)
+    return plan()

@@ -1,8 +1,9 @@
 """Whole-axis suffix-fill kernel (B2) and the shared slot/tile layout.
 
-Port of the parts of `voxtpu/ops/vox_pallas.py` that the banded
-pipeline uses: the tile geometry constants, `tile_batches`, and kernel
-B2, which replaces the Pallas `_pallas_kernel` (`_run_pallas` with
+Port of the parts of `voxtpu/ops/vox_pallas.py` that the banded and
+word-event pipelines use: the tile geometry constants, the batch
+layout (`tile_batches`, `tile_flags`, `_gather_batches`), the
+supertile size `_group_factor`, and kernel B2, which replaces the Pallas `_pallas_kernel` (`_run_pallas` with
 `seg=None`). The banded pipeline routes its x-degenerate candidates
 (whose x window does not fit a band) through B2 into a compact
 per-touched-tile buffer.
@@ -26,6 +27,9 @@ from voxtpu_torch.grids.voxel_grid import WORD_BITS, pack_bits
 
 TILE_CELLS = 128          # cells (YZ columns) per output tile
 TB_SUB, TB_LANE = 4, 128  # slot batch = TB_SUB x 128 panel
+FLAG_FIRST = 1            # voxtpu's batch flags: a tile's first batch
+FLAG_LAST = 2             # and its last
+_LANE_MIN = 128           # voxtpu's output panel width in words
 _SMEM_MAX = 232448        # shared memory a block may use on an H100
 
 
@@ -51,6 +55,45 @@ def tile_batches(bounds: np.ndarray, tb: int):
         batch_starts = np.zeros(1, np.int64)
     ends = np.minimum(batch_starts + tb, bounds[batch_tiles + 1])
     return batch_tiles, batch_starts, ends
+
+
+def tile_flags(bounds: np.ndarray, batch_tiles: np.ndarray):
+    """voxtpu's FIRST/LAST flags and tile mask of `tile_batches`' layout
+    (`vox_pallas.py:209-242`): a tile's batches are consecutive, the
+    first flagged FLAG_FIRST, the last FLAG_LAST (the one batch of an
+    empty layout both); the mask marks tiles that hold work. The CUDA
+    kernels do not read them: they drive voxtpu's sequential TPU grid,
+    and the word-event plan keeps them so that its arrays equal
+    voxtpu's."""
+    bt = np.asarray(batch_tiles)
+    first = np.concatenate([[True], bt[1:] != bt[:-1]])
+    last = np.concatenate([bt[:-1] != bt[1:], [True]])
+    flags = (first * FLAG_FIRST + last * FLAG_LAST).astype(np.int32)
+    return flags, np.diff(bounds) > 0
+
+
+def _group_factor(num_words: int, num_tiles: int) -> int:
+    """Sub-tiles packed side by side in one 128-word output panel, a
+    supertile (`vox_pallas_we.py:139-151`): 128 // num_words, rounded
+    down to a divisor of num_tiles (N = 96: 72 tiles, 42 lanes allow
+    36), 1 from N = 4096."""
+    g = max(1, min(_LANE_MIN // num_words, num_tiles))
+    while num_tiles % g:
+        g -= 1
+    return g
+
+
+def _gather_batches(values: torch.Tensor, starts: torch.Tensor,
+                    ends: torch.Tensor, *, tb: int, fill: int) -> torch.Tensor:
+    """(B, tb) panels of a sorted per-item array on its device
+    (`vox_pallas.py:196-206`): batch b holds items [starts[b], ends[b]),
+    `fill` in the lanes past its end. voxtpu gathers two arrays per
+    call; the port one, with its own fill."""
+    idx = starts.view(-1, 1).long() + torch.arange(tb, device=starts.device)
+    in_range = idx < ends.view(-1, 1)
+    idx = idx.clamp(0, max(values.shape[0] - 1, 0))
+    got = values[idx] if values.shape[0] else torch.zeros_like(idx, dtype=values.dtype)
+    return torch.where(in_range, got, torch.full_like(got, fill))
 
 
 def suffix_parity_words(cells: torch.Tensor, xs: torch.Tensor,

@@ -40,8 +40,9 @@ from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS,
                                        _check_range, _check_slots,
-                                       _check_window, suffix_parity_words,
-                                       tile_batches, wide_fill)
+                                       _check_window, _group_factor,
+                                       suffix_parity_words, tile_batches,
+                                       wide_fill)
 from voxtpu_torch.ops.vox_slots import (_batch_index, _exact_candidates,
                                         _slot_emit, _slot_rows)
 
@@ -49,18 +50,6 @@ from voxtpu_torch.ops.vox_slots import (_batch_index, _exact_candidates,
 BAND = 256
 # Each supertile group's batch run is padded to a multiple of PACK.
 PACK = 2
-
-_LANE_MIN = 128  # voxtpu's output panel width, the unit of PACK padding
-
-
-def _pad_group(num_words: int, num_tiles: int) -> int:
-    """voxtpu's supertile size (`vox_pallas_we._group_factor`): tiles
-    per 128-lane output panel, a divisor of num_tiles. The port pads
-    each group's batch run to a multiple of PACK, as voxtpu does."""
-    g = max(1, min(_LANE_MIN // num_words, num_tiles))
-    while num_tiles % g:
-        g -= 1
-    return g
 
 
 @dataclasses.dataclass
@@ -241,7 +230,7 @@ class BandedSlotVoxPipeline:
         nw = n // WORD_BITS
         num_tiles = (n * n) // tc
         self.num_tiles = num_tiles
-        g = _pad_group(nw, num_tiles)
+        g = _group_factor(nw, num_tiles)  # voxtpu pads each group to PACK
 
         tri, cell, v0, v1, v2 = _exact_candidates(mesh, spec)
         self.num_candidates = cell.shape[0]
