@@ -14,8 +14,13 @@ and no result line:
    B1 (banded fill) on an icosphere at n=128, band=64; B2 (whole-axis
    fill) through the pipeline on the icosahedron at n=192, band=64, and
    on live random slots; B3 (flood step) at every stride of n=128; B5
-   (signed distance) at n=128; and at n=64 the NumPy oracle
-   (voxelize_ref, jfa_ref) as a third witness.
+   (signed distance) at n=128; B6 (pipelined flood step) at every
+   stride of n=128 against its plain version and B3, and with the
+   signed distance against B5 after B3; B14 (work-queue fill) on the
+   icosphere's plan at n=128 (two X segments) against its plain version
+   and the banded grid; and at n=64 the NumPy oracle (voxelize_ref,
+   jfa_ref) as a third witness, then P1's five variants (flood-step
+   probe) against their plain versions at k = 32, 4, 1.
 4. Main path at the reference's benchmark scale: two washers of
    1,348,128 faces each (the second one shifted), written as OBJ files
    and run through `voxtpu_torch.cli` at 512^3 (vox -> CSG union ->
@@ -25,7 +30,13 @@ and no result line:
    Then each kernel is timed beside its plain version at these shapes
    (CUDA events, warm, median of 5). The washers' wide slots are all
    inert (an x-parallel cap covers no cell centre), so B2 is also timed
-   on random live slots of the same shape and tiles.
+   on random live slots of the same shape and tiles. Then, while the
+   folded grid is live, `jfa(grid, backend="cuda", pipe=True)` (voxtpu's
+   JFA_PIPE=1) must launch B6 9 times (k = 256 ... 2 and the fused
+   k = 1) and B3 and B5 never, and equal the CLI's SDF bitwise; B6 is
+   held against B3 and its plain version at each step and timed per step
+   beside B3. P1's variants are timed on the flood's own seeds at k = 4
+   and 128 (dense, where phase 4c's ball shell is sparse).
 4b. voxtpu's own routes (phase 4's state freed first, this phase's
    freed before phase 5): B12 (word-event fill) against its plain
    version on the icosphere at n=96 (36 tiles a supertile), n=128, and
@@ -39,9 +50,18 @@ and no result line:
    `jfa()` on the union of the two 1024^3 grids must run B4 (row-band
    flood step) and not B3, and equal a B3 chain bitwise; B4 is held
    against B3 and against its band-wise plain version at every stride,
-   and B4 and B3 are timed per step. Last, the CLI with -t 1 (the
-   plain route) on the card at n=128 on two small washers must equal
-   -t 2: grid xor 0, SDF bitwise.
+   and B4 and B3 are timed per step. `voxelize_wq` on a WorkQueueVoxPlan
+   of the same fragments must equal the banded grid at 512^3 and 1024^3
+   on each washer and launch B14 once a call; B14 is held against its
+   plain version there and timed on washer_a at 512^3; at 2048^3 on
+   washer_a (a 1.07 GB grid) it must equal `resolve_fragments` on the
+   same fragments, and is timed. Last, the CLI with -t 1 (the plain
+   route) on the card at n=128 on two small washers must equal -t 2:
+   grid xor 0, SDF bitwise.
+4c. The flood-step probe P1 through its runner
+   (`tools/probe_jfa_micro.py`) at 512^3 on ball-shell seeds, k = 4 and
+   128: every variant timed, `hoist` / `hoistv` bitwise equal to B3;
+   `hoistv` held against its plain version and timed beside it.
 5. Training kernels against their plain torch versions at n=128 on a
    jittered icosphere(4), soft plan with pad 2: B7 (fused forward)
    occupancy within 1e-4; B8 (fused backward) table cotangents for a
@@ -85,6 +105,9 @@ and no result line:
    its bytes over the memory rate and its operations over their peak
    rate, counted from this run's inputs; `bound`), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   Launches are those of each kernel's own path: phase 4's CLI call
+   (B1-B3, B5) and `jfa(pipe=True)` (B6); phase 4b's routes (B4, B12,
+   B14); phase 4c's probe (P1); phase 6 (the training kernels).
 
 Imports nothing of jax or voxtpu.
 """
@@ -113,6 +136,9 @@ SEG_N = 256             # phase 5b's grid, the seg engine's floor
 WE_SIZES = (MAIN_N, 1024)  # phase 4b's word-event grids
 JFA_N = 1024            # B4's grid (jfa routes 512 < N <= 1024 to it)
 PLAIN_CLI_N = 128       # phase 4b's -t 1 run on the card
+WQ_BIG_N = 2048         # phase 4b's B14 grid on washer_a alone
+PROBE_N, PROBE_KS = 512, (4, 128)  # phase 4c's flood-step probe
+PROBE_ROW = "hoistv"    # the probe variant whose time the kernels line carries
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its operations over their
@@ -203,11 +229,9 @@ def live_slots(cells) -> int:
     return int((cells >= 0).sum())
 
 
-def flood_flops(seed, k: int) -> int:
-    """Float32 operations of one flood step (B3) on `seed` at stride k:
-    each voxel's coordinates (6), and the squared distance (14) of its
-    own seed and of each in-grid candidate that holds a seed (the
-    kernel skips the rest)."""
+def seeded_candidates(seed, k: int) -> int:
+    """The in-grid candidates (own seed included) that hold a seed, over
+    all voxels, at stride k: the distances a flood step needs."""
     n = seed.shape[0]
     valid = seed >= 0
     count = int(valid.sum())
@@ -218,7 +242,24 @@ def flood_flops(seed, k: int) -> int:
                     box = tuple(slice(max(0, d * k), n + min(0, d * k))
                                 for d in (dz, dy, dx))
                     count += int(valid[box].sum())
-    return 6 * n ** 3 + 14 * count
+    return count
+
+
+def flood_flops(seed, k: int) -> int:
+    """Float32 operations of one flood step (B3) on `seed` at stride k:
+    each voxel's coordinates (6), and the unpack and squared distance
+    (14) of each seeded candidate (the kernel skips the rest)."""
+    return 6 * seed.shape[0] ** 3 + 14 * seeded_candidates(seed, k)
+
+
+def pipe_flops(seed, k: int, emit_sdf: bool = False) -> int:
+    """Float32 operations of one B6 step on `seed` at stride k, counted
+    from its source: each voxel's coordinates (6) and the unpack of its
+    staged seed (6, once, where B3 unpacks per candidate), the distance
+    from unpacked coordinates (8) of each seeded candidate, and with the
+    signed distance one product a voxel."""
+    n3 = seed.shape[0] ** 3
+    return 12 * n3 + 8 * seeded_candidates(seed, k) + emit_sdf * n3
 
 
 def int_err(a, b) -> int:
@@ -855,6 +896,92 @@ def plain_flood(occ, org):
     return seed, sdf_from_seed_plain(seed, occ, org)
 
 
+def jfa_pipe(errs, timings, bounds, result, occ, org, seeds) -> int:
+    """Phase 4, voxtpu's JFA_PIPE=1 on the folded grid: `jfa(pipe=True)`
+    must launch B6 once a step (the k = 1 step with the signed distance)
+    and B3 and B5 never, and equal the CLI's SDF bitwise. B6 is held
+    against B3 (the next entry of `seeds`, B3's (input, k) chain) and
+    its plain version at each step, and timed per step. Returns B6's
+    launches in the jfa() run."""
+    import torch
+
+    from voxtpu_torch.ops import jfa_cuda as J
+    from voxtpu_torch.ops.jfa import jfa
+
+    B3, B5, B6 = J.flood_step, J.sdf_from_seed, J.flood_step_pipe
+    for fn in (B3, B5, B6):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sdf = jfa(result.grids[0], result.spec, backend="cuda", pipe=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"B6": B6.launches, "B3": B3.launches, "B5": B5.launches}
+    print(f"jfa(pipe=True) at {MAIN_N}^3: {wall:.3f} s; launches {launches}")
+    require(launches == {"B6": len(seeds), "B3": 0, "B5": 0},
+            f"jfa(pipe=True) must run B6 at each of its {len(seeds)} steps, B3 and B5 never")
+    require(bitwise_equal(sdf, result.sdf), "jfa(pipe=True) differs from the CLI's SDF")
+    del sdf
+
+    step_ms, b3_ms, plain_ms, flops, moved = [], [], [], [], []
+    with uncounted(B3, B6):
+        for i, (si, ki) in enumerate(seeds):
+            extra = (occ,) if ki == 1 else ()
+            want = result.sdf if ki == 1 else seeds[i + 1][0]
+            got = B6(si, org, ki, *extra)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = J.flood_step_pipe_plain(si, org, ki, *extra)
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+            err = int_err(got, want) if ki > 1 else float_err(got, want)
+            errs["B6"] = max(errs["B6"], err)
+            require(bitwise_equal(got, want) and bitwise_equal(got, plain),
+                    f"B6 at k={ki} differs from B3 (B5 after B3 at k=1) or its plain version")
+            del got, plain
+            step_ms.append(cuda_ms(lambda: B6(si, org, ki, *extra), reps=3))
+            b3_ms.append(cuda_ms(lambda: B3(si, org, ki), reps=3))
+            flops.append(pipe_flops(si, ki, emit_sdf=ki == 1))
+            moved.append(nbytes(si, org, *extra) + 4 * si.numel())
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    timings["B6"] = (mean(step_ms), mean(plain_ms))
+    bounds["B6"] = bound(mean(moved), mean(flops))
+    for name, times in (("B6", step_ms), ("B3", b3_ms)):
+        print(f"{name} step ms (k=" + ",".join(str(k) for _, k in seeds) + "): "
+              + ", ".join(f"{t:.4f}" for t in times))
+    print(f"B6 at {MAIN_N}^3 per step (mean of {len(seeds)}, the last fused with the signed "
+          f"distance): kernel {timings['B6'][0]:.4f} ms beside B3 {mean(b3_ms):.4f} ms, "
+          f"plain {timings['B6'][1]:.1f} ms, bound {bounds['B6'][0]:.4f} ms "
+          f"({bounds['B6'][1]}); bitwise equal to B3 at every step")
+    return launches["B6"]
+
+
+def probe_main_path(org, seeds) -> None:
+    """Phase 4: P1's variants on the main path's own seed grids at the
+    strides PROBE_KS (B3's input at those steps: seeds dense after the
+    first steps, where the runner's ball shell is sparse), timed (not
+    counted as P1's path); hoist and hoistv held equal to B3."""
+    import torch
+
+    from voxtpu_torch.ops import jfa_probe
+
+    P1 = jfa_probe.flood_probe
+    with uncounted(P1):
+        for si, ki in seeds:
+            if ki not in PROBE_KS:
+                continue
+            ref = P1(si, org, ki, "legacy")
+            for variant in ("hoist", "hoistv"):
+                require(torch.equal(P1(si, org, ki, variant), ref),
+                        f"P1 {variant} differs from B3 on the main path's seeds at k={ki}")
+            t = {v: cuda_ms(lambda v=v: P1(si, org, ki, v), reps=3) for v in jfa_probe.VARIANTS}
+            print(f"P1 on the main path's seeds ({int((si >= 0).sum()):,} seeded voxels), "
+                  f"k={ki}: " + ", ".join(f"{v} {ms:.4f}" for v, ms in t.items())
+                  + f" ms; rolls {t['rolls'] / t['legacy']:.3f} and alu "
+                  f"{t['alu'] / t['legacy']:.3f} of legacy")
+
+
 def xor_popcount(a, b) -> int:
     """Set bits of a ^ b over two int32 word tensors."""
     from voxtpu_torch.grids.voxel_grid import popcount32
@@ -888,13 +1015,89 @@ def check_word_event_small(dev, errs, sphere) -> None:
               f"{plan.num_batches} batches, G={plan.group}, equal")
 
 
+def wq_route(errs, timings, bounds, mesh, spec, frag_plan, want, timed: bool) -> int:
+    """Phase 4b, the work-queue route on `frag_plan`'s fragments:
+    `voxelize_wq` on a WorkQueueVoxPlan must equal `want` and launch B14
+    once; B14 held against its plain version; timed when `timed`.
+    Returns B14's launches on the route."""
+    import torch
+
+    from voxtpu_torch.ops import vox_work_queue as Q
+    from voxtpu_torch.ops.vox import fragments_from_plan
+
+    B14, n = Q.wq_fill, spec.n
+    dev = frag_plan.device
+    t0 = time.perf_counter()
+    plan = Q.WorkQueueVoxPlan(mesh, spec, dev, fragments=fragments_from_plan(frag_plan))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    B14.launches = 0
+    grid = Q.voxelize_wq(mesh, spec, dev, plan=plan)
+    route = B14.launches
+    x = xor_popcount(grid.words, want)
+    require(route == 1, f"voxelize_wq launched B14 {route} times at {n}^3")
+    require(x == 0, f"{mesh.name} {n}^3: the work-queue grid differs from the banded one "
+            f"(xor popcount {x})")
+    with uncounted(B14):
+        args = plan.args()
+        plain = Q.wq_fill_plain(*args, n=n, tc=plan.tc)
+        errs["B14"] = max(errs["B14"], int_err(grid.words, plain))
+        require(torch.equal(grid.words, plain), f"B14 differs from plain at {n}^3")
+        del plain
+        if timed:
+            timings["B14"] = (cuda_ms(lambda: B14(*args, n=n, tc=plan.tc)),
+                              cuda_ms(lambda: Q.wq_fill_plain(*args, n=n, tc=plan.tc)))
+            bounds["B14"] = bound(nbytes(*args) + n ** 3 // 8)
+    print(f"{mesh.name} {n}^3 work queue: {plan.num_fragments:,} fragments on "
+          f"{plan.num_active:,} active tiles, {plan.cells2d.shape[0]:,} lane rows; "
+          f"WorkQueueVoxPlan {built:.2f} s; equal to the banded grid and B14's plain "
+          "version")
+    return route
+
+
+def wq_big(errs, timings, mesh, spec, dev) -> int:
+    """Phase 4b, B14 at WQ_BIG_N on one washer: `voxelize_wq` against
+    `resolve_fragments` on the same fragments (xor popcount 0), timed.
+    Returns B14's launches on the route."""
+    import torch
+
+    from voxtpu_torch.ops import vox_work_queue as Q
+    from voxtpu_torch.ops.vox import FragmentPlan, fragments_from_plan, resolve_fragments
+
+    B14, n = Q.wq_fill, spec.n
+    t0 = time.perf_counter()
+    frags = fragments_from_plan(FragmentPlan(mesh, spec, dev))
+    plan = Q.WorkQueueVoxPlan(mesh, spec, dev, fragments=frags)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    B14.launches = 0
+    grid = Q.voxelize_wq(mesh, spec, dev, plan=plan)
+    route = B14.launches
+    want = resolve_fragments(*frags, n=n)
+    x = xor_popcount(grid.words, want)
+    require(route == 1 and x == 0, f"{mesh.name} {n}^3: voxelize_wq (B14 launched {route} "
+            f"times) differs from resolve_fragments (xor popcount {x})")
+    del want
+    with uncounted(B14):
+        args = plan.args()
+        timings["B14 big"] = cuda_ms(lambda: B14(*args, n=n, tc=plan.tc), reps=3)
+    occupied = int(grid.count())
+    print(f"{mesh.name} {n}^3 work queue: {plan.num_fragments:,} fragments on "
+          f"{plan.num_active:,} active tiles ({int(frags[0].shape[0]):,} candidates), "
+          f"plan {built:.2f} s; grid {grid.words.numel() * 4 / 1e9:.2f} GB, {occupied:,} "
+          f"voxels, xor 0 against resolve_fragments; B14 {timings['B14 big']:.4f} ms, "
+          f"bound {bound(nbytes(*args) + n ** 3 // 8)[0]:.4f} ms (bytes)")
+    return route
+
+
 def word_event_route(dev, errs, timings, bounds, meshes):
     """Phase 4b, the word-event route at WE_SIZES on `meshes`: a
     WordEventVoxPlan through `voxelize(backend="word_event")` and a
     DeviceVoxPipeline, each against the banded pipeline's grid; B12
-    held against its plain version on every plan. Returns (B12's
-    launches on the route, the banded grids at JFA_N, that grid's
-    spec)."""
+    held against its plain version on every plan; and the work-queue
+    route (`wq_route`) on the pipeline's fragments. Returns (B12's
+    launches on the route, B14's, the banded grids at JFA_N, that
+    grid's spec)."""
     import numpy as np
     import torch
 
@@ -905,7 +1108,7 @@ def word_event_route(dev, errs, timings, bounds, meshes):
 
     B12 = W.word_event_fill
     allc = np.concatenate([m.coords for m in meshes])
-    launches, kept, kept_spec = 0, [], None
+    launches, wq_launches, kept, kept_spec = 0, 0, [], None
     for n in WE_SIZES:
         spec = GridSpec.fit(allc, n)
         for mesh in meshes:
@@ -951,12 +1154,15 @@ def word_event_route(dev, errs, timings, bounds, meshes):
                   f"build: banded {t1 - t0:.2f} s, WordEventVoxPlan {t2 - t1:.2f} s, "
                   f"DeviceVoxPipeline {t3 - t2:.2f} s; per call: DeviceVoxPipeline.words() "
                   f"{pipe_ms:.3f} ms, banded words() {banded_ms:.3f} ms; xor 0, overflow 0")
+            del plan, grid, words
+            wq_launches += wq_route(errs, timings, bounds, mesh, spec, pipe.frag_plan, want,
+                                    timed=n == MAIN_N and mesh is meshes[0])
             if n == JFA_N:
                 kept.append(want)
                 kept_spec = spec
-            del banded, plan, pipe, grid, words, want
+            del banded, pipe, want
         torch.cuda.empty_cache()
-    return launches, kept, kept_spec
+    return launches, wq_launches, kept, kept_spec
 
 
 def jfa_rows(dev, errs, timings, bounds, words, spec):
@@ -1026,6 +1232,62 @@ def jfa_rows(dev, errs, timings, bounds, words, spec):
     return launches["B4"]
 
 
+def probe_run(dev, errs, timings, bounds) -> int:
+    """Phase 4c: the probe runner `tools/probe_jfa_micro.py` at PROBE_N
+    on its ball-shell seeds for PROBE_KS (every variant timed, hoist and
+    hoistv asserted bitwise equal to B3 there); then PROBE_ROW held
+    against its plain version and timed beside it. Returns P1's
+    launches in the runner's run."""
+    import importlib.util
+
+    import torch
+
+    from voxtpu_torch.ops import jfa_probe
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_jfa_micro", os.path.join(ROOT, "tools", "probe_jfa_micro.py"))
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    P1 = jfa_probe.flood_probe
+    P1.launches = 0
+    try:
+        times = runner.probe(PROBE_N, PROBE_KS, 5, dev)
+    except AssertionError as e:
+        raise SmokeFailure(f"P1: {e}") from e
+    launches = P1.launches
+    require(launches > 0, "the probe never launched P1")
+
+    seed, org = runner.shell_seeds(PROBE_N, dev)
+    plain_ms, flops = [], []
+    with uncounted(P1):
+        for k in PROBE_KS:
+            got = P1(seed, org, k, PROBE_ROW)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = jfa_probe.flood_probe_plain(seed, org, k, PROBE_ROW)
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+            errs["P1"] = max(errs["P1"], int_err(got, want))
+            require(torch.equal(got, want), f"P1 {PROBE_ROW} differs from plain at k={k}")
+            flops.append(flood_flops(seed, k))
+            del got, want
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    timings["P1"] = (mean([times[k][PROBE_ROW] for k in PROBE_KS]), mean(plain_ms))
+    bounds["P1"] = bound(nbytes(seed, org) + 4 * seed.numel(), mean(flops))
+    for k in PROBE_KS:
+        t = times[k]
+        print(f"P1 k={k}: legacy {t['legacy']:.4f}, hoist {t['hoist']:.4f}, hoistv "
+              f"{t['hoistv']:.4f}, rolls {t['rolls']:.4f}, alu {t['alu']:.4f} ms; reads "
+              f"(rolls) {t['rolls'] / t['legacy']:.3f} and arithmetic (alu) "
+              f"{t['alu'] / t['legacy']:.3f} of legacy")
+    print(f"P1 {PROBE_ROW} per step (mean of k={PROBE_KS}): kernel {timings['P1'][0]:.4f} "
+          f"ms, plain {timings['P1'][1]:.1f} ms, bound {bounds['P1'][0]:.4f} ms "
+          f"({bounds['P1'][1]}); launches {launches}")
+    return launches
+
+
 def plain_cli_on_card(dev) -> None:
     """Phase 4b, last: the CLI's -t 1 (plain route) with --device cuda
     at PLAIN_CLI_N on two small washers equals its -t 2."""
@@ -1054,6 +1316,7 @@ def plain_cli_on_card(dev) -> None:
 
 
 def run() -> int:
+    import numpy as np
     import torch
 
     # ---- 1. device -------------------------------------------------------
@@ -1067,13 +1330,15 @@ def run() -> int:
     from voxtpu_torch.mesh import procedural
     from voxtpu_torch.mesh.mesh import Mesh
     from voxtpu_torch.mesh.obj_io import export_mesh, import_mesh
-    from voxtpu_torch.ops import jfa_cuda, vox_cuda, vox_slots_banded
-    from voxtpu_torch.ops.jfa import jfa_init_seed
+    from voxtpu_torch.ops import (jfa_cuda, jfa_probe, vox_cuda, vox_slots_banded,
+                                  vox_work_queue)
+    from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
     from voxtpu_torch.ops.reference import jfa_ref, voxelize_ref
     from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
 
     B1, B2 = vox_slots_banded.banded_fill, vox_cuda.wide_fill
-    B3, B5 = jfa_cuda.flood_step, jfa_cuda.sdf_from_seed
+    B3, B5, B6 = jfa_cuda.flood_step, jfa_cuda.sdf_from_seed, jfa_cuda.flood_step_pipe
+    B14, P1 = vox_work_queue.wq_fill, jfa_probe.flood_probe
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1091,7 +1356,8 @@ def run() -> int:
         if "Used" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().split("ptxas info    : ")[-1])
 
-    errs = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0.0, "B12": 0}
+    errs = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0.0, "B6": 0.0, "B12": 0, "B14": 0,
+            "P1": 0}
 
     def mesh_of(coords, faces, name):
         return Mesh(name=name, coords=coords, faces=faces, faces_normals=faces)
@@ -1138,7 +1404,8 @@ def run() -> int:
     print(f"B2 n=192 band=64: {pipe.num_wide} wide candidates, equal; "
           "live random slots at n=192 and 512 equal")
 
-    occ128 = BandedSlotVoxPipeline(sphere, spec128, dev)().to_dense()
+    grid128 = BandedSlotVoxPipeline(sphere, spec128, dev)()
+    occ128 = grid128.to_dense()
     org = jfa_cuda.org_tensor(spec128, dev)
     seed = jfa_init_seed(occ128)
     k = 64
@@ -1147,13 +1414,36 @@ def run() -> int:
         want = jfa_cuda.flood_step_plain(seed, org, k)
         errs["B3"] = max(errs["B3"], int_err(got, want))
         require(torch.equal(got, want), f"B3 differs from plain at k={k}")
+        pipe_got = B6(seed, org, k)
+        pipe_plain = jfa_cuda.flood_step_pipe_plain(seed, org, k)
+        errs["B6"] = max(errs["B6"], int_err(pipe_got, got), int_err(pipe_got, pipe_plain))
+        require(torch.equal(pipe_got, got) and torch.equal(pipe_got, pipe_plain),
+                f"B6 differs from B3 or its plain version at k={k}")
+        if k == 1:
+            pipe_sdf = B6(seed, org, 1, occ128)
+            pipe_plain = jfa_cuda.flood_step_pipe_plain(seed, org, 1, occ128)
+            chain = B5(got, occ128, org)
+            errs["B6"] = max(errs["B6"], float_err(pipe_sdf, chain),
+                             float_err(pipe_sdf, pipe_plain))
+            require(bitwise_equal(pipe_sdf, chain) and bitwise_equal(pipe_sdf, pipe_plain),
+                    "B6 with the signed distance differs from B5 after B3 or its plain "
+                    "version")
         seed = got
         k //= 2
     got = B5(seed, occ128, org)
     want = jfa_cuda.sdf_from_seed_plain(seed, occ128, org)
     errs["B5"] = max(errs["B5"], float_err(got, want))
     require(bitwise_equal(got, want), "B5 differs from plain (n=128)")
-    print("B3 at k=64..1 and B5 at n=128: equal")
+    print("B3, B6 at k=64..1 (B6 with the signed distance at k=1) and B5 at n=128: equal")
+
+    wplan = vox_work_queue.WorkQueueVoxPlan(sphere, spec128, dev, seg=64)
+    got = B14(*wplan.args(), n=128, tc=wplan.tc)
+    want = vox_work_queue.wq_fill_plain(*wplan.args(), n=128, tc=wplan.tc)
+    errs["B14"] = max(errs["B14"], int_err(got, want), int_err(got, grid128.words))
+    require(torch.equal(got, want) and torch.equal(got, grid128.words),
+            "B14 differs from its plain version or the banded grid (n=128)")
+    print(f"B14 n=128 seg=64: {wplan.num_fragments} fragments on {wplan.num_active} tiles, "
+          "equal to its plain version and the banded grid")
 
     spec64 = GridSpec.fit(sphere.coords, 64)
     grid64 = BandedSlotVoxPipeline(sphere, spec64, dev)()
@@ -1164,6 +1454,20 @@ def run() -> int:
     require(bitwise_equal(sdf64, torch.from_numpy(jfa_ref(oracle_occ, spec64))),
             "JFA differs from jfa_ref at n=64")
     print(f"n=64 oracle: grid ({int(oracle_occ.sum())} voxels) and SDF bitwise equal")
+
+    seed = jfa_init_seed(grid64.to_dense())
+    org = jfa_cuda.org_tensor(spec64, dev)
+    for k in (32, 4, 1):
+        b3 = B3(seed, org, k)
+        for variant in jfa_probe.VARIANTS:
+            got = P1(seed, org, k, variant)
+            want = jfa_probe.flood_probe_plain(seed, org, k, variant)
+            errs["P1"] = max(errs["P1"], int_err(got, want))
+            require(torch.equal(got, want), f"P1 {variant} differs from plain at k={k}")
+            if variant in ("legacy", "hoist", "hoistv"):
+                require(torch.equal(got, b3), f"P1 {variant} differs from B3 at k={k}")
+    print(f"P1 {', '.join(jfa_probe.VARIANTS)} at n=64, k=32, 4, 1: equal to their plain "
+          "versions; legacy, hoist, hoistv equal to B3")
 
     # ---- 4. main path -------------------------------------------------------
     phase(f"4. main path: CLI at {MAIN_N}^3, two meshes of {MAIN_FACES:,} faces")
@@ -1281,6 +1585,8 @@ def run() -> int:
         print(f"shapes: B1 {tuple(lk.shape)} slots, B2 {tuple(wk.shape)} slots on "
               f"{w_uidx.shape[0]} tiles, B3 per step (mean of k={MAIN_N // 2}..1), "
               f"B5 {MAIN_N}^3")
+        launches["B6"] = jfa_pipe(errs, timings, bounds, result, occ, org, seeds)
+        probe_main_path(org, seeds)
     # The serving path's grids and seeds (~6 GiB) are not the training
     # path's: free them before its peak memory is read.
     del result, occ, seeds, seed0, s, final_seed, seed_plain, sdf_plain, pipes, folded
@@ -1292,14 +1598,23 @@ def run() -> int:
     t_phase = time.perf_counter()
     check_word_event_small(dev, errs, sphere)
     washers = [mesh_of(c, f, "washer_a"), mesh_of(shifted, f, "washer_b")]
-    launches["B12"], kept, spec1024 = word_event_route(dev, errs, timings, bounds, washers)
+    launches["B12"], launches["B14"], kept, spec1024 = word_event_route(
+        dev, errs, timings, bounds, washers)
     union = kept[0] | kept[1]
     del kept
     launches["B4"] = jfa_rows(dev, errs, timings, bounds, union, spec1024)
-    del union, washers
+    del union
+    torch.cuda.empty_cache()
+    spec_big = GridSpec.fit(np.concatenate([m.coords for m in washers]), WQ_BIG_N)
+    launches["B14"] += wq_big(errs, timings, washers[0], spec_big, dev)
+    del washers
     torch.cuda.empty_cache()
     plain_cli_on_card(dev)
     print(f"phase 4b: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 4c. the flood-step probe P1 ----------------------------------------------
+    phase(f"4c. flood-step probe P1 at {PROBE_N}^3, k = {PROBE_KS}")
+    launches["P1"] = probe_run(dev, errs, timings, bounds)
 
     # ---- 5. training kernels vs plain ------------------------------------------
     phase(f"5. training kernels against their plain versions (n={KERNEL_N})")
@@ -1332,6 +1647,8 @@ def run() -> int:
          "voxtpu/ops/jfa_pallas.py:168"),
         ("B5", "B5 sdf_from_seed", "voxtpu_torch/csrc/jfa.cu",
          "voxtpu/ops/jfa_pallas.py:442"),
+        ("B6", "B6 flood_step_pipe", "voxtpu_torch/csrc/jfa.cu",
+         "voxtpu/ops/jfa_pallas.py:297"),
         ("B7", "B7 fused_fwd", soft, "voxtpu/ops/soft_vox_fused.py:209"),
         ("B8", "B8 fused_bwd", soft, "voxtpu/ops/soft_vox_fused.py:284"),
         ("B9", "B9 seg_fwd", seg, "voxtpu/ops/soft_vox_seg.py:89"),
@@ -1341,11 +1658,15 @@ def run() -> int:
          "voxtpu/ops/vox_pallas_we.py:71"),
         ("B13f", "B13 fragment_fwd", soft, "voxtpu/ops/soft_vox_pallas.py:49"),
         ("B13b", "B13 fragment_bwd", soft, "voxtpu/ops/soft_vox_pallas.py:88"),
+        ("B14", "B14 wq_fill", "voxtpu_torch/csrc/vox_wq.cu",
+         "voxtpu/ops/vox_pallas_wq.py:35"),
+        ("P1", f"P1 flood_probe ({PROBE_ROW})", "voxtpu_torch/csrc/jfa_probe.cu",
+         "scripts/probe_jfa_micro.py:56"),
     ]
     # library_ms: no single PyTorch call computes a parity fill, a
-    # 26-candidate flood step, a seeded distance, a per-slot sigmoid
-    # profile or its cotangents, the seg combine's gather, or a
-    # word-event XOR fill.
+    # 26-candidate flood step (or a variant of one), a seeded distance,
+    # a per-slot sigmoid profile or its cotangents, the seg combine's
+    # gather, or a word-event or work-queue XOR fill.
     kernels = []
     for key, name, source, replaces in table:
         ms, plain_ms = timings[key]

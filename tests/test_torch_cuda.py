@@ -14,9 +14,9 @@ from voxtpu_torch.grids.voxel_grid import GridSpec, pack_bits
 from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.models.fit import VoxelFit, soft_iou_loss
-from voxtpu_torch.ops import (jfa_cuda, soft_vox, soft_vox_cuda, soft_vox_fused,
-                              soft_vox_seg, vox_cuda, vox_slots_banded,
-                              vox_word_event)
+from voxtpu_torch.ops import (jfa_cuda, jfa_probe, soft_vox, soft_vox_cuda,
+                              soft_vox_fused, soft_vox_seg, vox_cuda, vox_slots_banded,
+                              vox_word_event, vox_work_queue)
 from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
 from voxtpu_torch.ops.reference import jfa_ref, voxelize_ref
 from voxtpu_torch.ops.vox import voxelize
@@ -187,6 +187,131 @@ def test_flood_rows_kernel_matches_plain_and_b3(dev, n, band):
         assert torch.equal(got, jfa_cuda.flood_step(seed, org, k)), k
         seed = got
         k //= 2
+
+
+@pytest.mark.parametrize("n", [128, 224])
+def test_flood_pipe_kernel_matches_plain_and_b3(dev, n):
+    """B6 against its plain version and B3 at every stride that divides
+    n, fed B3's seeds; the k = 1 step with the signed distance against
+    B5 after B3; and `jfa(pipe=True)` against the B3 flood and, at 128,
+    the oracle (n = 224 sends k = 3 to B3)."""
+    occ = np.random.default_rng(n).random((n, n, n)) < 0.02
+    spec = GridSpec(n=n, origin=(0.1, -0.23, 0.37), voxel_size=0.0731)
+    occ_d = torch.from_numpy(occ).to(dev)
+    org = jfa_cuda.org_tensor(spec, dev)
+    seed = jfa_init_seed(occ_d)
+    k = n // 2
+    while k >= 1:
+        b3 = jfa_cuda.flood_step(seed, org, k)
+        if n % k == 0:
+            before = jfa_cuda.flood_step_pipe.launches
+            got = jfa_cuda.flood_step_pipe(seed, org, k)
+            assert jfa_cuda.flood_step_pipe.launches == before + 1
+            assert torch.equal(got, b3), k
+            assert torch.equal(got, jfa_cuda.flood_step_pipe_plain(seed, org, k)), k
+        if k == 1:
+            got = jfa_cuda.flood_step_pipe(seed, org, 1, occ_d)
+            want = jfa_cuda.sdf_from_seed(b3, occ_d, org)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            plain = jfa_cuda.flood_step_pipe_plain(seed, org, 1, occ_d)
+            assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+        seed = b3
+        k //= 2
+    counts = [f.launches for f in (jfa_cuda.flood_step_pipe, jfa_cuda.flood_step,
+                                   jfa_cuda.sdf_from_seed)]
+    got = jfa(occ_d, spec, pipe=True)
+    ks = [n >> i for i in range(1, n.bit_length()) if n >> i >= 2]
+    divides = sum(n % k == 0 for k in ks)
+    assert [f.launches - c for f, c in zip((jfa_cuda.flood_step_pipe, jfa_cuda.flood_step,
+                                            jfa_cuda.sdf_from_seed), counts)] == [
+        divides + 1, len(ks) - divides, 0]
+    assert divides < len(ks) or n == 128
+    want = jfa(occ_d, spec, pipe=False)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if n == 128:
+        ref = torch.from_numpy(jfa_ref(occ, spec))
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def _wq_case(n):
+    mesh = _mesh(lambda: procedural.torus(1.0, 0.35, 48, 24), "torus")
+    spec = GridSpec.fit(mesh.coords, n)
+    return mesh, spec
+
+
+def test_wq_kernel_matches_plain_and_oracle(dev):
+    """B14 on a work-queue plan at n = 128 (seg 64: fragments over two
+    segments), against its plain version, the oracle and resolve."""
+    n = 128
+    mesh, spec = _wq_case(n)
+    plan = vox_work_queue.WorkQueueVoxPlan(mesh, spec, dev, seg=64)
+    before = vox_work_queue.wq_fill.launches
+    grid = vox_work_queue.voxelize_wq(mesh, spec, dev, plan=plan)
+    assert vox_work_queue.wq_fill.launches == before + 1
+    want = vox_work_queue.wq_fill_plain(*plan.args(), n=n, tc=plan.tc)
+    assert torch.equal(grid.words, want)
+    oracle = pack_bits(torch.from_numpy(voxelize_ref(mesh, spec)))
+    assert torch.equal(grid.words.cpu(), oracle) and bool(oracle.ne(0).any())
+
+
+@pytest.mark.parametrize("n,tc", [(512, 128), (256, 64)])
+def test_wq_kernel_on_random_runs(dev, n, tc):
+    """Random lanes over the whole x axis (every segment), pads, runs of
+    several chunks on scattered tiles, one tile masked out."""
+    rng = np.random.default_rng(n)
+    num_tiles = n * n // tc
+    tiles = np.sort(rng.choice(num_tiles, 40, replace=False)).astype(np.int32)
+    chunks = rng.integers(1, 4, tiles.size).astype(np.int32)
+    starts = (np.concatenate([[0], np.cumsum(chunks)])[:-1] * 8).astype(np.int32)
+    rows = int(chunks.sum()) * 8
+    cells = rng.integers(-1, tc, (rows, 128)).astype(np.int32)
+    xs = rng.integers(0, n, (rows, 128)).astype(np.int32)
+    mask = np.zeros(num_tiles, bool)
+    mask[tiles[1:]] = True
+    args = [torch.from_numpy(a) for a in (cells, xs, starts, chunks, tiles, mask)]
+    got = vox_work_queue.wq_fill(*(a.to(dev) for a in args), n=n, tc=tc)
+    want = vox_work_queue.wq_fill_plain(*args, n=n, tc=tc)
+    assert torch.equal(got.cpu(), want) and bool(want.ne(0).any())
+
+
+def test_probe_kernel_matches_plain(dev):
+    """P1's variants against their plain versions at n = 64; hoist and
+    hoistv equal B3."""
+    n = 64
+    occ = np.random.default_rng(6).random((n, n, n)) < 0.02
+    spec = GridSpec(n=n, origin=(0.1, -0.23, 0.37), voxel_size=0.0731)
+    org = jfa_cuda.org_tensor(spec, dev)
+    seed = jfa_init_seed(torch.from_numpy(occ).to(dev))
+    for k in (32, 4, 1):
+        b3 = jfa_cuda.flood_step(seed, org, k)
+        for variant in jfa_probe.VARIANTS:
+            before = jfa_probe.flood_probe.launches
+            got = jfa_probe.flood_probe(seed, org, k, variant)
+            assert jfa_probe.flood_probe.launches == before + 1
+            assert torch.equal(got, jfa_probe.flood_probe_plain(seed, org, k, variant)), (
+                variant, k)
+            if variant in ("legacy", "hoist", "hoistv"):
+                assert torch.equal(got, b3), (variant, k)
+
+
+def test_new_kernels_refuse_bad_arguments(dev):
+    seed = torch.full((12, 12, 12), -1, dtype=torch.int32, device=dev)
+    org = torch.zeros(4, device=dev)
+    with pytest.raises(ValueError, match="must divide"):
+        jfa_cuda.flood_step_pipe(seed, org, 5)
+    with pytest.raises(TypeError, match="int32"):
+        jfa_cuda.flood_step_pipe(seed.float(), org, 1)
+    with pytest.raises(TypeError, match="int32"):
+        jfa_probe.flood_probe(seed.float(), org, 1, "hoist")
+    with pytest.raises(ValueError, match="unknown variant"):
+        jfa_probe.flood_probe(seed, org, 1, "dma")
+    lanes = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    run = torch.zeros(1, dtype=torch.int32, device=dev)
+    mask = torch.zeros(8, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        vox_work_queue.wq_fill(lanes.float(), lanes, run, run, run, mask, n=32, tc=128)
+    with pytest.raises(ValueError, match="different devices"):
+        vox_work_queue.wq_fill(lanes, lanes.cpu(), run, run, run, mask, n=32, tc=128)
 
 
 def test_kernels_reject_bad_arguments(dev):

@@ -22,6 +22,7 @@ from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.ops.jfa import jfa as j_jfa
 from voxtpu.ops.jfa import jfa_init_seed as j_init_seed
 from voxtpu.ops.jfa_pallas import (_flood_step_pallas, _flood_step_pallas_yblocked,
+                                   _flood_step_pipelined, _jfa_pallas,
                                    _sdf_from_seed_pallas)
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
 from voxtpu_torch.ops.jfa import jfa, jfa_init_seed
@@ -125,6 +126,100 @@ def test_flood_step_routing():
     with pytest.raises(ValueError, match="N <= 1024"):
         J.flood_step_for(1056)
     assert J.ROW_BAND == 256
+
+
+def test_flood_step_pipe_plain_matches_pipelined_pallas():
+    """B6's plain version against voxtpu's `_flood_step_pipelined` at
+    every stride k | n of n = 32, fed the same seeds each step, and equal
+    to B3's plain version there; then the k = 1 step with the signed
+    distance (`emit_sdf`) against voxtpu's and against B5 after B3."""
+    n = 32
+    occ = _sparse(n, 13)
+    org = org_tensor(GridSpec(n=n, **DYADIC), "cpu")
+    jorg = jnp.asarray(org.numpy())
+    seed = jfa_init_seed(torch.from_numpy(occ))
+    for k in (16, 8, 4, 2, 1):
+        got = J.flood_step_pipe(seed, org, k)
+        want = np.asarray(_flood_step_pipelined(jnp.asarray(seed.numpy()), jorg, k, n))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k}")
+        assert torch.equal(got, J.flood_step_plain(seed, org, k)), k
+        if k > 1:
+            seed = got
+    occ_t = torch.from_numpy(occ)
+    got = J.flood_step_pipe(seed, org, 1, occ_t)
+    want = _flood_step_pipelined(jnp.asarray(seed.numpy()), jorg, 1, n,
+                                 occ=jnp.asarray(occ), emit_sdf=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    chain = J.sdf_from_seed_plain(J.flood_step_plain(seed, org, 1), occ_t, org)
+    np.testing.assert_array_equal(_bits(got), _bits(chain))
+    assert J.flood_step_pipe.launches == 0
+
+
+@pytest.mark.parametrize("n,origin,p", [(32, DYADIC, 0.03), (14, DYADIC, 0.05),
+                                        (24, OTHER, 0.03)])
+def test_jfa_pipe_matches_voxtpu_pipe_and_oracle(n, origin, p):
+    """`jfa(pipe=True)` on the CPU against voxtpu's `_jfa_pallas(pipe=True)`
+    (dyadic) and `jfa_ref`; n = 14 sends k = 3 to B3 (3 does not divide
+    14), n = 24 k = 3 likewise, on non-dyadic geometry (oracle only)."""
+    occ = _sparse(n, n, p)
+    spec = GridSpec(n=n, **origin)
+    got = jfa(torch.from_numpy(occ), spec, backend="cuda", pipe=True).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(jfa_ref(occ, spec)))
+    if origin is DYADIC:
+        want = _jfa_pallas(jnp.asarray(occ), DYADIC["origin"], DYADIC["voxel_size"], n=n,
+                           pipe=True)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_pipe_routing_counts_plain_calls(monkeypatch):
+    """With pipe, N <= 512 (`FULL_PLANE_MAX_N`): B6 at the strides that
+    divide N, B3 at the others, B6 with the signed distance at k = 1 and
+    no B5; above it pipe changes nothing. JFA_PIPE=1 selects pipe when
+    `pipe` is None, for backend "cuda" only."""
+    calls = {}
+    for name in ("flood_step_pipe_plain", "flood_step_plain", "flood_step_rows_plain",
+                 "sdf_from_seed_plain"):
+        def counted(*args, _fn=getattr(J, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args)
+        monkeypatch.setattr(J, name, counted)
+
+    def run(n, **kw):
+        calls.clear()
+        occ = torch.from_numpy(_sparse(n, 1, 0.05))
+        out = jfa(occ, GridSpec(n=n, **OTHER), **kw)
+        np.testing.assert_array_equal(_bits(out.numpy()),
+                                      _bits(jfa_ref(occ.numpy(), GridSpec(n=n, **OTHER))))
+        return dict(calls)
+
+    assert run(32, pipe=True) == {"flood_step_pipe_plain": 5}
+    assert run(14, pipe=True) == {"flood_step_pipe_plain": 2, "flood_step_plain": 1}
+    assert run(32, pipe=False) == {"flood_step_plain": 5, "sdf_from_seed_plain": 1}
+    assert run(32) == {"flood_step_plain": 5, "sdf_from_seed_plain": 1}
+    monkeypatch.setenv("JFA_PIPE", "1")
+    assert run(32) == {"flood_step_pipe_plain": 5}
+    assert run(32, backend="plain") == {"flood_step_plain": 5, "sdf_from_seed_plain": 1}
+    monkeypatch.setattr(J, "FULL_PLANE_MAX_N", 16)
+    assert run(32, pipe=True) == {"flood_step_rows_plain": 5, "sdf_from_seed_plain": 1}
+    assert J.flood_step_pipe.launches == J.flood_step.launches == 0
+
+
+def test_pipe_refusals():
+    occ = torch.zeros((32,) * 3, dtype=torch.bool)
+    spec = GridSpec(n=32, origin=(0.0,) * 3, voxel_size=1.0)
+    for backend in ("plain", "reference"):
+        with pytest.raises(ValueError, match="pipe=True needs backend 'cuda'"):
+            jfa(occ, spec, backend=backend, pipe=True)
+    seed = torch.full((12, 12, 12), -1, dtype=torch.int32)
+    org = torch.zeros(4)
+    for k in (5, 12, 0):
+        with pytest.raises(ValueError, match="must divide"):
+            J.flood_step_pipe(seed, org, k)
+    with pytest.raises(TypeError, match="bool"):
+        J.flood_step_pipe(seed, org, 1, torch.zeros((12,) * 3, dtype=torch.uint8))
+    with pytest.raises(TypeError, match="int32"):
+        J.flood_step_pipe(seed.long(), org, 1)
 
 
 def test_jfa_plain_backend_matches_cuda_backend_and_oracle():

@@ -5,6 +5,9 @@
 //   B4  _step_kernel_yblocked  (vt_flood_step_rows): the same step in
 //                              (1, H, n) row bands, for 512 < N <= 1024
 //   B5  _final_kernel          (vt_sdf_from_seed): signed squared distance
+//   B6  _pipe_kernel           (vt_flood_step_pipe): B3 by a residue walk
+//                              that unpacks each seed once; at k = 1
+//                              optionally fused with B5 (JFA_PIPE=1)
 //
 // State is one int32 seed grid, 10-bit packed (z << 20 | y << 10 | x),
 // -1 where no seed is known; N <= 1024.
@@ -29,23 +32,9 @@
 
 #include <cuda_runtime.h>
 
+#include "jfa_common.cuh"
+
 namespace {
-
-constexpr int kMask10 = 0x3FF;
-
-__device__ __forceinline__ float seed_d2(int seed, float px, float py,
-                                         float pz, float ox, float oy,
-                                         float oz, float vs) {
-  if (seed < 0) return __int_as_float(0x7f800000);  // +inf
-  const float sx = (float)(seed & kMask10);
-  const float sy = (float)((seed >> 10) & kMask10);
-  const float sz = (float)((seed >> 20) & kMask10);
-  const float dx = __fsub_rn(px, __fadd_rn(ox, __fmul_rn(sx, vs)));
-  const float dy = __fsub_rn(py, __fadd_rn(oy, __fmul_rn(sy, vs)));
-  const float dz = __fsub_rn(pz, __fadd_rn(oz, __fmul_rn(sz, vs)));
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 __global__ void flood_step_kernel(const int* __restrict__ seed,
                                   int* __restrict__ out,
@@ -111,7 +100,7 @@ __global__ void flood_step_kernel(const int* __restrict__ seed,
 constexpr int kRows = 8;
 constexpr int kCols = 32;
 
-__device__ __forceinline__ int window_len(int tile, int k) {
+__host__ __device__ __forceinline__ int window_len(int tile, int k) {
   return k < tile ? tile + 2 * k : 3 * tile;
 }
 
@@ -188,6 +177,136 @@ __global__ void flood_step_rows_kernel(const int* __restrict__ seed,
   }
 }
 
+// B6. The TPU kernel walks the planes of one residue class r (mod k) in
+// a sequential grid (k, n/k + 1), carries the previous and current
+// planes in VMEM scratch, reads each seed plane once per step and
+// unpacks each seed once into world coordinates (sxw, syw, szw), +inf
+// in z for no seed, so a candidate costs the distance alone. Blocks run
+// in no order here, so the walk goes inside the block: one block per
+// (in-plane tile of kRows x kCols, residue r, run of kPipeWalk planes of
+// that residue) walks z = r + j*k with a ring of three staged source
+// windows in shared memory (planes z - k, z, z + k), each window B4's
+// tile + (-k, 0, +k) per axis, each entry unpacked once as a float4
+// (sxw, syw, szw, seed bits); -1 (+inf in z) outside the grid. A plane
+// outside the grid contributes only +inf candidates, which strict `<`
+// never takes, so its nine candidates are skipped.
+//
+// Exactness: sxw = ox + sx*vs as in seed_d2, d2 = (px - sxw)^2 +
+// (py - syw)^2 + (pz - szw)^2 left to right, each operation rounded on
+// its own: the same floats as seed_d2, so with B3's candidate order and
+// strict `<` the result is B3's bit for bit. With emit_sdf the output
+// is sign(occ) * best_d2 as float32: best_d2 is the distance of the
+// chosen seed by B5's formula, so the k = 1 step equals B5 after B3.
+//
+// Bound on this card: the distance of each candidate (8 flops, from
+// shared memory) now that the unpack (6 flops and 3 conversions) is
+// done once per staged seed, not 26 times; device memory reads fall
+// from B3's 27 a voxel to the window's 9 at large k and ~1.3 at k = 1.
+// Shared memory is 3 windows of up to 24 x 96 float4 (110,592 bytes):
+// two blocks an SM.
+constexpr int kPipeWalk = 32;
+
+__device__ __forceinline__ float4 world_of(int s, float ox, float oy, float oz,
+                                           float vs) {
+  float4 w;
+  w.x = __fadd_rn(ox, __fmul_rn((float)(s & kMask10), vs));
+  w.y = __fadd_rn(oy, __fmul_rn((float)((s >> 10) & kMask10), vs));
+  w.z = s < 0 ? __int_as_float(0x7f800000)
+              : __fadd_rn(oz, __fmul_rn((float)((s >> 20) & kMask10), vs));
+  w.w = __int_as_float(s);
+  return w;
+}
+
+__device__ __forceinline__ float world_d2(float4 w, float px, float py,
+                                          float pz) {
+  const float dx = __fsub_rn(px, w.x);
+  const float dy = __fsub_rn(py, w.y);
+  const float dz = __fsub_rn(pz, w.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+__global__ void flood_step_pipe_kernel(const int* __restrict__ seed,
+                                       const unsigned char* __restrict__ occ,
+                                       const float* __restrict__ org,
+                                       void* __restrict__ out, int n, int k,
+                                       int emit_sdf) {
+  extern __shared__ float4 ring[];  // [3][rl][cl]
+  const int tiles_x = (n + kCols - 1) / kCols;
+  const int x0 = (blockIdx.x % tiles_x) * kCols;
+  const int y0 = (blockIdx.x / tiles_x) * kRows;
+  const int r = blockIdx.y;
+  const int planes = (n - 1 - r) / k + 1;  // z = r, r + k, ... < n
+  const int j0 = blockIdx.z * kPipeWalk;
+  if (j0 >= planes) return;
+  const int j1 = min(j0 + kPipeWalk, planes);
+  const int tx = threadIdx.x % kCols;
+  const int ty = threadIdx.x / kCols;
+  const int rl = window_len(kRows, k);
+  const int cl = window_len(kCols, k);
+  const int plane = rl * cl;
+  const long long nn = (long long)n * n;
+  const float ox = org[0], oy = org[1], oz = org[2], vs = org[3];
+  const int x = x0 + tx;
+  const int y = y0 + ty;
+  const float px = __fadd_rn(ox, __fmul_rn((float)x, vs));
+  const float py = __fadd_rn(oy, __fmul_rn((float)y, vs));
+
+  // Stage plane j of the residue into ring slot j % 3.
+  auto stage = [&](int j) {
+    const int* src = seed + (long long)(r + j * k) * nn;
+    float4* dst = ring + (j % 3) * plane;
+    for (int sr = ty; sr < rl; sr += kRows) {
+      const int yn = y0 + window_offset(sr, kRows, k);
+      const bool yok = yn >= 0 && yn < n;
+      const int* row = src + (yok ? (long long)yn * n : 0);
+      for (int sc = tx; sc < cl; sc += kCols) {
+        const int xn = x0 + window_offset(sc, kCols, k);
+        const int s = yok && xn >= 0 && xn < n ? row[xn] : -1;
+        dst[sr * cl + sc] = world_of(s, ox, oy, oz, vs);
+      }
+    }
+  };
+
+  if (j0 >= 1) stage(j0 - 1);
+  stage(j0);
+  for (int j = j0; j < j1; ++j) {
+    if (j + 1 < planes) stage(j + 1);
+    __syncthreads();
+    if (x < n && y < n) {
+      const int z = r + j * k;
+      const float pz = __fadd_rn(oz, __fmul_rn((float)z, vs));
+      const float4 own = ring[(j % 3) * plane + window_slot(ty, 0, kRows, k) * cl +
+                              window_slot(tx, 0, kCols, k)];
+      int best = __float_as_int(own.w);
+      float best_d2 = world_d2(own, px, py, pz);
+      for (int dz = -1; dz <= 1; ++dz) {
+        if ((dz < 0 && j == 0) || (dz > 0 && j + 1 >= planes)) continue;
+        const float4* src = ring + ((j + dz + 3) % 3) * plane;
+        for (int dy = -1; dy <= 1; ++dy) {
+          const float4* row = src + window_slot(ty, dy, kRows, k) * cl;
+          for (int dx = -1; dx <= 1; ++dx) {
+            if (dz == 0 && dy == 0 && dx == 0) continue;
+            const float4 c = row[window_slot(tx, dx, kCols, k)];
+            const float d2 = world_d2(c, px, py, pz);
+            if (d2 < best_d2) {
+              best_d2 = d2;
+              best = __float_as_int(c.w);
+            }
+          }
+        }
+      }
+      const long long i = z * nn + (long long)y * n + x;
+      if (emit_sdf) {
+        ((float*)out)[i] = __fmul_rn(occ[i] ? 1.0f : -1.0f, best_d2);
+      } else {
+        ((int*)out)[i] = best;
+      }
+    }
+    __syncthreads();  // every thread has read slot (j - 1) % 3 before it is restaged
+  }
+}
+
 __global__ void sdf_from_seed_kernel(const int* __restrict__ seed,
                                      const unsigned char* __restrict__ occ,
                                      const float* __restrict__ org,
@@ -227,6 +346,28 @@ extern "C" int vt_flood_step_rows(const void* seed, void* out, const void* org,
   const dim3 grid((n + kCols - 1) / kCols, (n + band - 1) / band, n);
   flood_step_rows_kernel<<<grid, kRows * kCols, 0, (cudaStream_t)stream>>>(
       (const int*)seed, (int*)out, (const float*)org, n, k, band);
+  return (int)cudaGetLastError();
+}
+
+// B6: out is int32 seeds, or with emit_sdf float32 sign(occ) * d2
+// (occ read only then). Any 1 <= k < n; the wrapper sends k | n.
+extern "C" int vt_flood_step_pipe(const void* seed, const void* occ,
+                                  const void* org, void* out, int n, int k,
+                                  int emit_sdf, void* stream) {
+  const int tiles = ((n + kCols - 1) / kCols) * ((n + kRows - 1) / kRows);
+  const int walks = ((n + k - 1) / k + kPipeWalk - 1) / kPipeWalk;
+  const size_t smem =
+      3 * (size_t)window_len(kRows, k) * window_len(kCols, k) * sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flood_step_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flood_step_pipe_kernel<<<dim3(tiles, k, walks), kRows * kCols, smem,
+                           (cudaStream_t)stream>>>(
+      (const int*)seed, (const unsigned char*)occ, (const float*)org, out, n,
+      k, emit_sdf);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,8 @@ against voxtpu's.
   `local`, `batch_tile`, `batch_basew` and the `wide` tuple of
   `voxtpu.ops.vox_slots_banded.BandedSlotVoxPipeline`;
 - the word-event plan's event panels (`voxtpu.ops.vox_pallas_we.
-  WordEventVoxPlan`);
+  WordEventVoxPlan`) and the work-queue plan's lanes and runs
+  (`voxtpu.ops.vox_pallas_wq.WorkQueueVoxPlan`);
 - the soft engines' slot layouts (`voxtpu.ops.soft_vox_fused.
   FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`,
   `voxtpu.ops.soft_vox_seg.SegSoftPlan`);
@@ -32,6 +33,7 @@ from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
 from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedState
 from voxtpu_torch.ops.vox_word_event import WordEventVoxPlan
+from voxtpu_torch.ops.vox_work_queue import WorkQueueVoxPlan
 
 
 def words_to_torch(words: np.ndarray, *, device) -> torch.Tensor:
@@ -98,6 +100,22 @@ def word_event_plan_from_voxtpu(plan_arrays, *, device) -> WordEventVoxPlan:
     return WordEventVoxPlan.from_layout(
         spec, device, cells, ws, his, masks, cnts, batch_tile, flags, tile_mask,
         tc=int(p.tc), num_events=int(p.num_events), num_fragments=int(p.num_fragments))
+
+
+def wq_plan_from_voxtpu(plan, *, device) -> WorkQueueVoxPlan:
+    """The port's work-queue plan on voxtpu's layout.
+
+    `plan` is voxtpu's `WorkQueueVoxPlan`, or any object with its
+    attribute names: `spec`, `tc`, `seg`, `num_fragments`, the (rows,
+    128) lanes `cells2d`, `xs2d`, per run `row_start`, `num_chunks`,
+    `tile_id`, and `tile_mask`."""
+    spec = GridSpec(n=int(plan.spec.n), origin=tuple(float(v) for v in plan.spec.origin),
+                    voxel_size=float(plan.spec.voxel_size))
+    arrays = (np.asarray(getattr(plan, k)) for k in (
+        "cells2d", "xs2d", "row_start", "num_chunks", "tile_id", "tile_mask"))
+    return WorkQueueVoxPlan.from_layout(spec, device, *arrays, tc=int(plan.tc),
+                                        seg=int(plan.seg),
+                                        num_fragments=int(plan.num_fragments))
 
 
 def fused_plan_from_voxtpu(soft_plan, cells_b, tblidx_b, batch_tile,

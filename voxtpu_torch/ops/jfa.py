@@ -12,7 +12,8 @@ larger grids is not ported yet.
 
 Backends: ``"reference"`` (the NumPy oracle), ``"cuda"`` (the flood
 of `ops/jfa_cuda.py`: kernels on CUDA tensors, their plain torch
-versions on the CPU) and ``"plain"`` (voxtpu's ``"xla"``: the same
+versions on the CPU; `pipe` or `JFA_PIPE=1` selects voxtpu's
+pipelined step B6) and ``"plain"`` (voxtpu's ``"xla"``: the same
 flood through the plain versions on the grid's device).
 """
 
@@ -62,9 +63,15 @@ def jfa_init_seed(occ: torch.Tensor) -> torch.Tensor:
 
 
 def jfa(grid: VoxelGrid | torch.Tensor, spec: GridSpec | None = None,
-        backend: str = "cuda") -> torch.Tensor:
+        backend: str = "cuda", pipe: bool | None = None) -> torch.Tensor:
     """Signed squared distance field of an occupancy grid, on the grid's
-    device. Accepts a packed VoxelGrid or a dense bool tensor (+ spec)."""
+    device. Accepts a packed VoxelGrid or a dense bool tensor (+ spec).
+
+    `pipe` (``"cuda"`` only) takes voxtpu's pipelined flood step B6
+    where it applies (`ops/jfa_cuda.py`); None reads `JFA_PIPE` there,
+    as voxtpu's `jfa_pallas` does."""
+    if pipe and backend != "cuda":
+        raise ValueError(f"pipe=True needs backend 'cuda', not {backend!r}")
     if isinstance(grid, VoxelGrid):
         occ = grid.to_dense()
         spec = grid.spec() if spec is None else spec
@@ -79,7 +86,7 @@ def jfa(grid: VoxelGrid | torch.Tensor, spec: GridSpec | None = None,
     if backend == "cuda":
         from voxtpu_torch.ops.jfa_cuda import jfa_cuda
 
-        return jfa_cuda(occ, spec)
+        return jfa_cuda(occ, spec, pipe=pipe)
     if backend == "plain":
         from voxtpu_torch.ops.jfa_cuda import jfa_plain
 
