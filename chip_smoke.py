@@ -83,7 +83,9 @@ and no result line:
    limit of half a voxel, so step 4 rebuilds the plan at full size.
    Each step prints loss, grad norm, wall time, peak memory and launch
    counts; the first also holds B7 / B8 against their plain versions at
-   full size and times them (CUDA events, warm, median of 3). The loss
+   full size and times them (CUDA events, warm, median of 3). Each
+   plan B7 / B8 are held on prints its live slots and their mean
+   transition window in columns (`window_widths`). The loss
    must fall and B1, B7, B8 launch (and B2 if the target routed
    candidates to it; the rotated torus has no x-degenerate face, so it
    routes none). After the last step all four training kernels are held
@@ -105,7 +107,9 @@ and no result line:
    card's name and power limit, the kernel table as one JSON line (each
    kernel's launches, error, time, plain time and bound: the larger of
    its bytes over the memory rate and its operations over their peak
-   rate, counted from this run's inputs; `bound`), then the last line
+   rate, counted from this run's inputs; `bound`; a soft kernel's
+   sigmoids counted over its slots' transition windows only, the
+   every-pair count printed beside it), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    Launches are those of each kernel's own path: phase 4's CLI call
    (B1-B3, B5) and `jfa(pipe=True)` (B6); phase 4b's routes (B4, B12,
@@ -164,6 +168,10 @@ CMP_OP_S = 64 * 132 * 1.98e9
 # products and the two running sums (5 more). A slot's fragment rebuild
 # is 3 edge sigmoids and the weight and x-hit (37, 9 special); the
 # chain rule to 13 cotangents 30 more (3 divisions).
+# Each (slot, column) pair outside a slot's transition window has a
+# term known without its sigmoid (`window_widths`): the thresholds of
+# csrc/soft_vox.cu (kSatHi, kSatLo) on (xh - cx) / tau_x.
+SAT_HI, SAT_LO = 17.0, -29.0
 PAIR_FWD = (9, 3)
 PAIR_BWD = (14, 3)
 SLOT_FRAG = (37, 9)
@@ -224,16 +232,68 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def soft_bound(moved: int, slots: int, cols: int, backward: bool, rebuild: bool = True):
+def soft_bound(moved: int, slots: int, pairs: int, backward: bool, rebuild: bool = True):
     """The bound of a soft kernel: `moved` bytes, `slots` live slots
-    over `cols` columns each; `rebuild` (the fused and seg kernels)
-    adds each slot's fragment and, backward, its chain rule."""
+    and `pairs` (slot, column) pairs whose sigmoid the function needs;
+    `rebuild` (the fused and seg kernels) adds each slot's fragment
+    and, backward, its chain rule."""
     pair = PAIR_BWD if backward else PAIR_FWD
     per_slot = [(f + (c if backward else 0)) * rebuild
                 for f, c in zip(SLOT_FRAG, SLOT_CHAIN)]
-    pairs = slots * cols
     return bound(moved, pairs * pair[0] + slots * per_slot[0],
                  pairs * pair[1] + slots * per_slot[1])
+
+
+def window_widths(xh, ok, n: int, ox: float, vs: float, tau_x: float):
+    """Per slot, the columns whose sigmoid the soft profile needs: the
+    transition window [a, b) of `csrc/soft_vox.cu::slot_window` (left
+    of a the sigmoid is exactly 1, from b on the term rounds to 0 in
+    the fixed point), found as the kernel finds it, by stepping the
+    float32 argument (xh - cx) / tau_x from an estimate; n for a slot
+    that is not `ok` (|w| > 1 or a non-finite x_hit: the whole row).
+    One count for B7, B8 and B13, whatever each kernel evaluates."""
+    import torch
+
+    xh = torch.where(ok, xh, torch.zeros_like(xh))
+
+    def arg(col):
+        return (xh - (ox + (col.float() * vs + vs * 0.5))) / tau_x
+
+    def step(col, move, sign):
+        while True:
+            m = move(col)
+            if not bool(m.any()):
+                return col
+            col = col + sign * m.long()
+
+    at = (xh - ox) / vs - 0.5
+    r = tau_x / vs
+    a = (at - SAT_HI * r).clamp(0, n).long()
+    a = step(a, lambda c: (c > 0) & (arg(c - 1) < SAT_HI), -1)
+    a = step(a, lambda c: (c < n) & (arg(c) >= SAT_HI), 1)
+    b = torch.maximum(a, (at - SAT_LO * r + 1.0).clamp(0, n).long())
+    b = step(b, lambda c: (c > a) & (arg(c - 1) <= SAT_LO), -1)
+    b = step(b, lambda c: (c < n) & (arg(c) > SAT_LO), 1)
+    return torch.where(ok, b - a, torch.full_like(a, n))
+
+
+def fused_windows(fp, tables, prm):
+    """(live slots, (slot, column) pairs in their windows) of a fused
+    plan's tables, the x_hit and w rebuilt as the plain version does."""
+    import torch
+
+    from voxtpu_torch.ops import soft_vox_fused as F
+
+    slots = pairs = 0
+    for b0 in range(0, fp.num_batches, 4096):
+        b1 = min(b0 + 4096, fp.num_batches)
+        valid, *_, w, xh = F._fused_slots(tables, fp.cells_d, fp.tblidx_d, fp.batch_tile_d,
+                                          b0, b1, n=fp.spec.n, tc=fp.tc, prm=prm)
+        ok = (w.abs() <= 1) & torch.isfinite(xh)
+        widths = window_widths(xh[valid], ok[valid], fp.spec.n, prm[0], prm[3], prm[5])
+        slots += int(valid.sum())
+        pairs += int(widths.sum())
+    return slots, pairs
 
 
 def live_slots(cells) -> int:
@@ -374,9 +434,16 @@ def hold_fused(fp, tables, g, errs, what: str):
     e8 = hold(errs, "B8", dtab, want, GRAD_TOL * top, f"B8 {what}")
     print(f"B7 {what}: max_abs_err {e7:.3e} (limit {OCC_TOL:.0e}); B8: {e8:.3e} "
           f"(max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
-    slots, n = live_slots(fp.cells_d), fp.spec.n
-    bounds = {"B7": soft_bound(nbytes(*args, fp.run_start_d, occ), slots, n, False),
-              "B8": soft_bound(nbytes(*args, g, dtab), slots, n, True)}
+    slots, pairs = fused_windows(fp, tables, kw["prm"])
+    n = fp.spec.n
+    print(f"B7 / B8 {what}: {slots:,} live slots, {pairs:,} window pairs, mean window "
+          f"{pairs / max(slots, 1):.3f} of {n} columns")
+    moved = {"B7": nbytes(*args, fp.run_start_d, occ), "B8": nbytes(*args, g, dtab)}
+    bounds = {key: soft_bound(moved[key], slots, pairs, key == "B8") for key in moved}
+    for key in moved:
+        every = soft_bound(moved[key], slots, slots * n, key == "B8")
+        print(f"{key} {what}: bound {bounds[key][0]:.4f} ms ({bounds[key][1]}); counting "
+              f"every pair {every[0]:.4f} ms ({every[1]})")
     return (lambda: F.fused_fwd(*args, fp.run_start_d, **kw),
             lambda: F.fused_fwd_plain(*args, **kw),
             lambda: F.fused_bwd(*args, g, **kw),
@@ -413,11 +480,19 @@ def hold_fragment(cp, coords, g, errs, what: str):
         bwd.append(f"{name} {err:.3e} (max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
     print(f"B13 fwd {what}: max_abs_err {ef:.3e} (limit {OCC_TOL:.0e}); B13 bwd: "
           + "; ".join(bwd))
-    slots = live_slots(cp.cells_d)
-    bounds = {"B13f": soft_bound(nbytes(*args, cp.run_start_d, occ), slots, spec.n,
-                                 False, rebuild=False),
-              "B13b": soft_bound(nbytes(*args, g, *grads), slots, spec.n, True,
-                                 rebuild=False)}
+    live = cp.cells_d.reshape(-1) >= 0
+    xl = xb.reshape(-1)[live]
+    ok = (wb.reshape(-1)[live].abs() <= 1) & torch.isfinite(xl)
+    slots = int(live.sum())
+    pairs = int(window_widths(xl, ok, spec.n, kw["prm"][0], vs, tau_x).sum())
+    moved = {"B13f": nbytes(*args, cp.run_start_d, occ), "B13b": nbytes(*args, g, *grads)}
+    bounds = {key: soft_bound(moved[key], slots, pairs, key == "B13b", rebuild=False)
+              for key in moved}
+    for key in moved:
+        every = soft_bound(moved[key], slots, slots * spec.n, key == "B13b", rebuild=False)
+        print(f"{key} {what}: {slots:,} live slots, mean window {pairs / max(slots, 1):.3f}"
+              f" columns; bound {bounds[key][0]:.4f} ms ({bounds[key][1]}); counting "
+              f"every pair {every[0]:.4f} ms ({every[1]})")
     return (lambda: C.fragment_fwd(*args, cp.run_start_d, **kw),
             lambda: C.fragment_fwd_plain(*args, **kw),
             lambda: C.fragment_bwd(*args, g, **kw),
@@ -582,10 +657,10 @@ def hold_seg(plan, tables, g, errs, what: str):
     print(f"B9 {what}: max_abs_err {e9:.3e} (limit {OCC_TOL:.0e}); B10 bitwise equal; "
           f"B11 {e11:.3e} (max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
     slots, n = live_slots(plan.cells_d), plan.spec.n
-    bounds = {"B9": soft_bound(nbytes(*args, plan.run_start_d, *parts), slots, S.PANEL,
-                               False),
+    bounds = {"B9": soft_bound(nbytes(*args, plan.run_start_d, *parts), slots,
+                               slots * S.PANEL, False),
               "B10": bound(nbytes(*parts, occ), 2 * n ** 3),
-              "B11": soft_bound(nbytes(*args, g, gpre, dtab), slots, S.PANEL, True)}
+              "B11": soft_bound(nbytes(*args, g, gpre, dtab), slots, slots * S.PANEL, True)}
     return (lambda: S.seg_fwd(*args, plan.run_start_d, prm=prm, **kw),
             lambda: S.seg_fwd_plain(*args, prm=prm, **kw),
             lambda: S.seg_combine(*parts, **kw),

@@ -1,9 +1,11 @@
-// A host emulation of the CUDA features that csrc/jfa.cu and
-// csrc/jfa_probe.cu use, for tests/test_torch_flood_emulated.py.
+// A host emulation of the CUDA features that csrc/jfa.cu,
+// csrc/jfa_probe.cu and csrc/soft_vox.cu use, for
+// tests/test_torch_flood_emulated.py and tests/test_torch_soft_emulated.py.
 //
 // A launch runs its blocks one after another; a block's threads run as
 // host threads, so that __syncthreads, __syncthreads_or and __any_sync
-// are barriers among them. cp.async copies are queued by the copying
+// are barriers among them, and __syncwarp and the shuffles barriers
+// among a warp's threads. Atomics are std::atomic_ref operations. cp.async copies are queued by the copying
 // thread and land when a wait requires their group (the latest a card
 // may land them). Float operations round to nearest on their own, as
 // __fadd_rn and friends do on the card (build with -ffp-contract=off).
@@ -13,6 +15,7 @@
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -34,6 +37,10 @@ struct float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {
@@ -42,7 +49,9 @@ enum {
   cudaErrorInvalidConfiguration = 9,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8
 };
+using std::fmaxf;
 using std::fminf;
+using std::isfinite;
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -55,12 +64,35 @@ inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline long long __float2ll_rn(float f) { return std::llrintf(f); }  // nearest, ties to even
+inline float __ll2float_rn(long long v) { return (float)v; }
+
+template <typename T>
+inline T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+inline int atomicMin(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int cur = a.load();
+  while (v < cur && !a.compare_exchange_weak(cur, v)) {
+  }
+  return cur;
+}
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int cur = a.load();
+  while (v > cur && !a.compare_exchange_weak(cur, v)) {
+  }
+  return cur;
+}
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::atomic<int> acc[3];
   std::atomic<int> warp_acc[32][3];
+  std::uint64_t warp_x[32][32];  // a shuffle's values, a warp's lanes
 };
 inline EmuBlock* emu_block = nullptr;
 inline thread_local int emu_or_calls = 0, emu_vote_calls = 0;
@@ -87,6 +119,32 @@ inline int __any_sync(unsigned, int p) {
   if (p) emu_block->warp_acc[w][c % 3] |= 1;
   emu_block->warp_bar[w]->arrive_and_wait();
   return emu_block->warp_acc[w][c % 3].load();
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_block->warp_bar[emu_tid() / 32]->arrive_and_wait();
+}
+
+// Lane `src`'s value of v, for every lane of the warp (all must call).
+template <typename T>
+inline T emu_shfl(T v, int src) {
+  static_assert(sizeof(T) <= sizeof(std::uint64_t));
+  const int w = emu_tid() / 32;
+  std::memcpy(&emu_block->warp_x[w][emu_tid() % 32], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &emu_block->warp_x[w][src], sizeof(T));
+  __syncwarp();
+  return r;
+}
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) { return emu_shfl(v, src); }
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) { return emu_shfl(v, (emu_tid() % 32) ^ mask); }
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, int d) {
+  const int lane = emu_tid() % 32;
+  return emu_shfl(v, lane >= d ? lane - d : lane);
 }
 
 inline thread_local std::vector<std::vector<std::pair<int*, int>>> emu_groups;

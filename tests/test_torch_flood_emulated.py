@@ -16,10 +16,6 @@ tested. Skips where no C++20 compiler is installed.
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,50 +26,18 @@ from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.ops import jfa_cuda as J
 from voxtpu_torch.ops.jfa import jfa_init_seed
 
-SHIM = Path(__file__).with_name("cuda_emulation.h")
+from tests.emulation import build_host_library
+
 OTHER = dict(origin=(0.1, -0.23, 0.37), voxel_size=0.0731)
 DYADIC = dict(origin=(0.5, -2.0, 1.25), voxel_size=0.0625)
 
 
-def _host_source(src: str) -> str:
-    """A csrc file for the host: the shim for cuda_runtime.h, dynamic
-    shared memory as the shim's buffer, launches and cp.async through
-    the shim."""
-    src = src.replace("#include <cuda_runtime.h>", f'#include "{SHIM}"')
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];", r"\1* \2 = (\1*)emu_smem;", src)
-    src = re.sub(r"(\w+(?:<\w+>)?)<<<(.+?)>>>\(", r"emu_launch(\1, \2, ", src, flags=re.S)
-    src = re.sub(r'asm volatile\("cp\.async\.ca.*?"memory"\);', "emu_copy(dst, src);", src,
-                 flags=re.S)
-    src = re.sub(r'asm volatile\("cp\.async\.commit_group.*?"memory"\);', "emu_commit();", src,
-                 flags=re.S)
-    src = re.sub(r'asm volatile\("cp\.async\.wait_group.*?"memory"\);', "emu_wait(kPending);",
-                 src, flags=re.S)
-    src = src.replace("(unsigned)__cvta_generic_to_shared(dst)", "0u")
-    code = re.sub(r"//.*", "", src)
-    for left in ("asm volatile", "<<<", "extern __shared__", "cuda_runtime.h>"):
-        assert left not in code, f"the host rewrite missed {left!r}: update _host_source"
-    return src
-
-
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a C++20 host compiler")
-    out = tmp_path_factory.mktemp("flood_emulated")
-    sources = []
-    for name in ("jfa.cu", "jfa_probe.cu", "jfa_common.cuh"):
-        (out / name).write_text(_host_source((_build.CSRC / name).read_text()))
-        if name.endswith(".cu"):
-            sources.append(str(out / name))
-    so = out / "libflood_emulated.so"
-    cmd = [cxx, "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
-           "-w", "-x", "c++", *sources, "-o", str(so)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        if "barrier" in done.stderr and "No such file" in done.stderr:
-            pytest.skip("the host compiler has no C++20 <barrier>")
-        raise AssertionError(f"host build failed:\n{done.stderr[-4000:]}")
+    names = ("jfa.cu", "jfa_probe.cu", "jfa_common.cuh")
+    so = build_host_library(tmp_path_factory.mktemp("flood_emulated"),
+                            {name: (_build.CSRC / name).read_text() for name in names},
+                            ["jfa.cu", "jfa_probe.cu"], "flood_emulated")
     library = ctypes.CDLL(str(so))
     for entry in ("vt_flood_step", "vt_flood_step_rows", "vt_flood_step_pipe",
                   "vt_flood_probe"):

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one VoxelFit step goes, on one CUDA card.
 
-    python3 tools/profile_train_step.py [fused] [seg]   # from the repository root
+    python3 tools/profile_train_step.py [--n N] [fused] [seg]   # from the repository root
 
 The training path of `chip_smoke.py` (phase 6): a torus brought to
-1,348,128 faces and rotated, its hard grid at 512^3 as the target, the
+1,348,128 faces and rotated, its hard grid at N^3 (default 512; at
+1024^3 `"auto"` takes the fused engine on a card) as the target, the
 start shifted by half a voxel along x plus 0.1 voxel of jitter,
 `make_soft_plan(pad_window=2)`, `VoxelFit(engine=...)` with Adam at a
 quarter of a voxel, for each engine named (default: fused, then seg).
@@ -17,6 +18,7 @@ device's busy time and idle share of that step's wall time.
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -37,11 +39,10 @@ from voxtpu_torch.models.fit import VoxelFit  # noqa: E402
 from voxtpu_torch.ops.soft_vox import make_soft_plan  # noqa: E402
 from voxtpu_torch.ops.vox import voxelize  # noqa: E402
 
-N = 512
 FACES = 1_348_128
 
 
-def main(engines) -> int:
+def main(engines, n: int) -> int:
     if not torch.cuda.is_available():
         print("profile_train_step: no CUDA device is available", file=sys.stderr)
         return 2
@@ -51,7 +52,7 @@ def main(engines) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     mesh = rotated_torus(FACES)
-    spec = GridSpec.fit(mesh.coords, N)
+    spec = GridSpec.fit(mesh.coords, n)
     vs = spec.voxel_size
     rng = np.random.default_rng(0)
     start = (mesh.coords + np.float32([0.5 * vs, 0.0, 0.0])
@@ -106,4 +107,8 @@ def profile_engine(engine: str, plan, target, start, vs) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["fused", "seg"]))
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("engines", nargs="*", default=["fused", "seg"])
+    parser.add_argument("--n", type=int, default=512, help="grid size (default 512)")
+    args = parser.parse_args()
+    sys.exit(main(args.engines, args.n))

@@ -40,12 +40,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C entry point -> argtypes; every entry returns a cudaError_t as int.
 SIGNATURES = {
-    # tables, cells, tblidx, batch_tile, run_start, num_runs, tb, tbl, n,
-    # tc, num_tiles, ox, oy, oz, vs, tau_e, tau_x, out, stream
-    "vt_fused_fwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P, _P],
+    # tables, cells, tblidx, batch_tile, run_start, num_batches, num_runs,
+    # tb, tbl, n, tc, num_tiles, ox, oy, oz, vs, tau_e, tau_x, work, out,
+    # stream
+    "vt_fused_fwd": [_P] * 5 + [_I] * 7 + [_F] * 6 + [_P] * 3,
     # tables, cells, tblidx, batch_tile, g, num_batches, tb, tbl, n, tc,
-    # num_tiles, ox, oy, oz, vs, tau_e, tau_x, dtab, stream
-    "vt_fused_bwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P, _P],
+    # num_tiles, ox, oy, oz, vs, tau_e, tau_x, pre, dtab, stream
+    "vt_fused_bwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P] * 3,
     # wb, xb, cells, batch_tile, run_start, num_runs, tb, n, tc, num_tiles,
     # ox, vs, tau_x, out, stream
     "vt_fragment_fwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P, _P],

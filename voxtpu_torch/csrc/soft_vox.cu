@@ -25,34 +25,77 @@
 // leaks over the pad window with both facing signs), so a float32
 // running sum loses ~1e-4 at 512^3. Each term is therefore rounded to
 // a multiple of 2^-40 and added as a 64-bit integer: exact and
-// associative, so kLanes slot lanes add with shared-memory atomics in
-// any order and the sum stays deterministic; it is rounded to float
-// once. Per batch the block first stages every slot's (cell, w, xh) in
-// shared memory, computed once per slot.
+// associative, so threads add with shared-memory atomics in any order
+// and the sum stays deterministic; it is rounded to float once.
 //
 // Backward (B8, B13 bwd): per slot, dw = sum_x g[cell, x] * sig and
-// dxh = (w / tau_x) * sum_x g[cell, x] * sig * (1 - sig). One warp per
-// slot, its lanes striding over x (coalesced reads of the cotangent
-// row), a fixed shuffle tree for the sum. B13 writes (dw, dxh) per
-// slot. B8 chain-rules them to the 13 coefficient cotangents and sums
-// those per table row: one block per batch, so no two blocks write one
-// row, and each row's sum runs over the batch's slots in slot order.
+// dxh = (w / tau_x) * sum_x g[cell, x] * sig * (1 - sig), a group of
+// lanes a slot (B13: a warp over the row; B8: kGroup lanes over the
+// window), its lanes striding over x, a fixed shuffle tree for the sum.
+// B13 writes (dw, dxh) per slot. B8 chain-rules them to the 13
+// coefficient cotangents and sums those per table row: one block per
+// batch, so no two blocks write one row, and each row's sum runs over
+// the batch's slots in slot order.
+//
+// The fused kernels (B7, B8) compute a slot's sigmoid only inside its
+// transition window [a, b) of columns (`slot_window`); B13 evaluates
+// every (slot, column) pair. With v = (xh - cx) / tau_x as every kernel
+// computes it (column centre, subtraction, division, each rounded on
+// its own), v is non-increasing in the column: the centre is a chain
+// of monotone roundings of x, and so are the subtraction and the
+// division by tau_x > 0. The window's ends are found by evaluating v
+// itself at the boundary columns, so the rounding of v and of the
+// centres needs no margin; only expf's does:
+//   - left of a, v >= kSatHi = 17: exp(-17) = 4.14e-8 < 2^-24 = 5.96e-8
+//     with a factor 1.44 to spare (expf is within 2 ulp, CUDA
+//     Programming Guide), so 1 + expf(-v) rounds to 1 and the sigmoid
+//     is exactly 1.0f: the term is w itself, and in B8 1 - sig is 0;
+//   - from b on, v <= kSatLo = -29: expf(-v) >= exp(29) = 3.9e12 >
+//     2^41 (factor 1.79), so sig <= 2^-41 and, for |w| <= 1,
+//     |w * sig| * 2^40 <= 1/2 rounds to 0 in the fixed point.
+// B7 adds the saturated columns' integer __float2ll_rn(w * 2^40), the
+// very integer the full row adds there, through a per-cell difference
+// along the chunk and one scan, and drops the zero columns: its 64-bit
+// sums, and so its output, are bitwise those of the full row. A slot
+// whose w or xh is not finite, or |w| > 1, takes the whole row, so
+// that its NaN marks fall where the full row puts them. B8 takes the
+// saturated columns' sum of g from a float64 prefix of g's rows
+// (`row_prefix_kernel`, one pass a call) and drops the terms right of
+// b (each below 2^-41 |g[x]|); a row whose total is not finite, or a
+// slot whose xh is not finite, takes the whole row. At the default
+// tau_x of half a voxel a window is ~24 columns of 512.
 //
 // What bounds them on this card: the sigmoid of every (slot, column)
-// pair, F x N of them (~1e10 for 20M fragments at N = 512), each with
-// a shared-memory read-modify-write in the forward and a read of the
-// cotangent (from L1/L2: a tile's rows are read by all its slots) in
-// the backward. The library is built with -fmad=false and the
-// coefficient, x-hit and chain-rule arithmetic is spelled in voxtpu's
-// order, so every operation rounds on its own.
+// pair in the window (kGroup lanes a slot, ~23 columns), each with a
+// 64-bit shared add (two native 32-bit atomics) in the forward and a
+// read of the cotangent in the backward; B7's record pass (16 bytes a
+// slot) and each chunk block's two reads of its run's records; B8's
+// prefix (4 bytes read and 8 written a grid cell) and its per-slot
+// rebuild and chain rule. The library is
+// built with -fmad=false and the coefficient, x-hit and chain-rule
+// arithmetic is spelled in voxtpu's order, so every operation rounds on
+// its own.
+//
+// tests/test_torch_soft_emulated.py runs this file on the host by
+// rewriting the cuda_runtime.h include, each `extern __shared__` array
+// (spelled `extern __shared__ <one-word type> <name>[];`) and each
+// `<<<...>>>` launch. A change to those lines' text changes the test
+// with it. No kernel here declares a static __shared__ variable: the
+// host rewrite would make it a thread's own.
 
 #include "soft_common.cuh"
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kXC = 64;     // columns per forward block
-constexpr int kLanes = 4;   // slot lanes per forward block (kXC x kLanes threads)
-constexpr int kBwdThreads = 256;
+constexpr int kLanes = 4;   // slot lanes per B13 fwd block (kXC x kLanes threads)
+constexpr int kThreads = 256;
+constexpr int kFwdThreads = 512;  // B7's accumulation: 16 warps at 3 blocks an SM
+constexpr int kGroup = 8;         // lanes a windowed slot's columns take (~23 of them)
+constexpr float kSatHi = 17.0f;   // v >= kSatHi: sigmoid(v) == 1.0f
+constexpr float kSatLo = -29.0f;  // v <= kSatLo: the term rounds to 0
 
 // A fused slot's fragment from its global cell (z * n + y).
 __device__ __forceinline__ Frag fused_frag(const float* __restrict__ at,
@@ -61,21 +104,359 @@ __device__ __forceinline__ Frag fused_frag(const float* __restrict__ at,
                  center(g.oz, gcell / g.n, g.vs), g);
 }
 
-// B7 / B13 fwd. Grid (runs, ceil(n / kXC)), kXC * kLanes threads: a
-// thread owns column threadIdx.x % kXC and every kLanes-th slot (one
-// slot lane per pair of warps, so a warp reads one slot at a time). A
-// run is the batches [run_start[r], run_start[r + 1]) of one tile.
-template <bool kFused>
-__global__ void accumulate_kernel(const float* __restrict__ tables,
+// The sigmoid's argument at column x, as every soft kernel computes it.
+__device__ __forceinline__ float profile_arg(float xh, int x, const Geom& g) {
+  return (xh - center(g.ox, x, g.vs)) / g.tau_x;
+}
+
+// Whether `slot_window`'s monotonicity holds for the whole launch.
+__device__ __forceinline__ bool window_geom(const Geom& g) {
+  return g.tau_x > 0.0f && isfinite(g.tau_x) && g.vs > 0.0f && isfinite(g.vs) &&
+         isfinite(g.ox);
+}
+
+// A column index near the real column f, clamped to [0, n].
+__device__ __forceinline__ int clamp_col(float f, int n) {
+  return (int)fminf(fmaxf(f, 0.0f), (float)n);
+}
+
+struct Window {
+  int a, b;
+};
+
+// A slot's transition window at a finite xh (under `window_geom`): the
+// least a with v(a) < kSatHi and the least b with v(b) <= kSatLo (n if
+// none), found from an estimate by stepping v's own values.
+__device__ __forceinline__ Window slot_window(float xh, const Geom& g) {
+  const float at = (xh - g.ox) / g.vs - 0.5f;
+  const float r = g.tau_x / g.vs;
+  int a = clamp_col(at - kSatHi * r, g.n);
+  while (a > 0 && profile_arg(xh, a - 1, g) < kSatHi) --a;
+  while (a < g.n && profile_arg(xh, a, g) >= kSatHi) ++a;
+  int b = max(a, clamp_col(at - kSatLo * r + 1.0f, g.n));
+  while (b > a && profile_arg(xh, b - 1, g) <= kSatLo) --b;
+  while (b < g.n && profile_arg(xh, b, g) > kSatLo) ++b;
+  return {a, b};
+}
+
+// ---------------------------------------------------------------------
+// B7: a record pass, then the windowed accumulation.
+// ---------------------------------------------------------------------
+
+// One thread a slot: its record (local cell or -1, w, xh, a | b << 16).
+__global__ void fused_window_kernel(const float* __restrict__ tables,
+                                    const int* __restrict__ tblidx,
+                                    const int* __restrict__ cells,
+                                    const int* __restrict__ batch_tile,
+                                    long long num_slots, int tb, int tbl,
+                                    int num_tiles, Geom g, int4* __restrict__ rec) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= num_slots) return;
+  const int b = (int)(k / tb);
+  const int tile = batch_tile[b];
+  const int c = cells[k];
+  int4 r = make_int4(-1, 0, 0, 0);
+  if (tile >= 0 && tile < num_tiles && c >= 0 && c < g.tc) {
+    const float* at = table_row(tables, tblidx, k, b, tbl);
+    if (at) {
+      const Frag f = fused_frag(at, tile * g.tc + c, g);
+      Window win = {0, g.n};
+      if (fabsf(f.w) <= 1.0f && isfinite(f.xh) && window_geom(g)) win = slot_window(f.xh, g);
+      r = make_int4(c, __float_as_int(f.w), __float_as_int(f.xh), win.a | (win.b << 16));
+    }
+  }
+  rec[k] = r;
+}
+
+// acc += v (mod 2^64) as two native 32-bit shared atomics, the low
+// word's carry added to the high word: the words' sums, and so the
+// 64-bit value once every add is done, do not depend on the order
+// (a 64-bit shared atomicAdd compiles to a compare-and-swap loop,
+// ATOMS.CAST.SPIN.64, on sm_90a).
+__device__ __forceinline__ void add_split(u64* acc, u64 v) {
+  unsigned* word = (unsigned*)acc;  // little-endian: the low word first
+  const unsigned lo = (unsigned)v;
+  const unsigned old = atomicAdd(word, lo);
+  const unsigned hi = (unsigned)(v >> 32) + (old + lo < old ? 1u : 0u);
+  if (hi) atomicAdd(word + 1, hi);
+}
+
+// `fix_add` through `add_split`.
+__device__ __forceinline__ void fix_add_split(u64* acc, unsigned* bad, unsigned bit,
+                                              float v) {
+  if (fabsf(v) <= 1.0f)
+    add_split(acc, (u64)__float2ll_rn(v * kFix));
+  else
+    atomicOr(bad, bit);
+}
+
+// Each cell's row of kXC fixed-point differences -> its base plus their
+// inclusive scan, one warp a cell, two columns a lane.
+static_assert(kXC == 64, "scan_rows: a warp's 32 lanes take two columns each");
+__device__ __forceinline__ void scan_rows(u64* acc, const u64* base, int tc) {
+  const int lane = threadIdx.x & 31;
+  for (int c = threadIdx.x >> 5; c < tc; c += blockDim.x >> 5) {
+    u64* row = acc + c * kXC + 2 * lane;
+    const u64 d0 = row[0];
+    const u64 pair = d0 + row[1];
+    u64 incl = pair;
+    for (int off = 1; off < 32; off <<= 1) {
+      const u64 up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    incl += base[c];
+    row[0] = incl - pair + d0;
+    row[1] = incl;
+  }
+}
+
+// Grid (num_runs * chunks), kFwdThreads threads: block (run, chunk) owns
+// columns [x0, x1) of the run's tile. Pass 1 adds the saturated columns:
+// w's integer to its cell's base (every column) where a > x0, and its
+// negation as a difference at a where a falls inside the chunk; then
+// each row is scanned. Pass 2, per batch, lists the slots whose window
+// meets the chunk and gives each listed slot kGroup lanes over its
+// columns there. The base is an array of its own because the rows'
+// first columns all lie in one shared-memory bank.
+__global__ void fused_accumulate_kernel(const int4* __restrict__ rec,
+                                        const int* __restrict__ batch_tile,
+                                        const int* __restrict__ run_start, int tb,
+                                        int num_tiles, int chunks, Geom g,
+                                        float* __restrict__ out) {
+  extern __shared__ u64 s_acc[];                             // [tc][kXC]
+  int4* s_item = (int4*)(s_acc + g.tc * kXC);                // [tb]
+  u64* s_base = (u64*)(s_item + tb);                         // [tc]
+  unsigned* s_bad = (unsigned*)(s_base + g.tc);              // [tc / 32][kXC]
+  int* s_count = (int*)(s_bad + bad_words(g.tc) * kXC);      // [2]
+  const int run = blockIdx.x / chunks;
+  const int x0 = (blockIdx.x % chunks) * kXC;
+  const int x1 = min(x0 + kXC, g.n);
+  const int b0 = run_start[run];
+  const int b1 = run_start[run + 1];
+  if (b1 <= b0) return;
+  const int tile = batch_tile[b0];
+  if (tile < 0 || tile >= num_tiles) return;  // uniform per block
+  const int glane = threadIdx.x % kGroup;
+
+  for (int i = threadIdx.x; i < g.tc * kXC; i += blockDim.x) s_acc[i] = 0ull;
+  for (int i = threadIdx.x; i < bad_words(g.tc) * kXC; i += blockDim.x) s_bad[i] = 0u;
+  for (int c = threadIdx.x; c < g.tc; c += blockDim.x) s_base[c] = 0ull;
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
+  __syncthreads();
+  const long long k1 = (long long)b1 * tb;
+  for (long long k = (long long)b0 * tb + threadIdx.x; k < k1; k += blockDim.x) {
+    const int4 r = rec[k];
+    const int a = r.w & 0xffff;
+    if (r.x < 0 || a <= x0) continue;
+    const u64 fix = (u64)__float2ll_rn(__int_as_float(r.y) * kFix);
+    add_split(&s_base[r.x], fix);
+    if (a < x1) add_split(&s_acc[r.x * kXC + (a - x0)], 0ull - fix);
+  }
+  __syncthreads();
+  scan_rows(s_acc, s_base, g.tc);
+
+  for (int b = b0; b < b1; ++b) {
+    int* count_b = s_count + (b & 1);  // reset a batch before its use
+    for (int s = threadIdx.x; s < tb; s += blockDim.x) {
+      const int4 r = rec[(long long)b * tb + s];
+      const int lo = max(r.w & 0xffff, x0);
+      const int hi = min(r.w >> 16, x1);
+      if (r.x >= 0 && lo < hi)
+        s_item[atomicAdd(count_b, 1)] = make_int4(r.x, r.y, r.z, lo | (hi << 16));
+    }
+    __syncthreads();
+    const int count = *count_b;
+    if (threadIdx.x == 0) s_count[(b & 1) ^ 1] = 0;
+    for (int i = threadIdx.x / kGroup; i < count; i += blockDim.x / kGroup) {
+      const int4 it = s_item[i];
+      const int c = it.x;
+      const float w = __int_as_float(it.y);
+      const float xh = __int_as_float(it.z);
+      for (int x = (it.w & 0xffff) + glane; x < (it.w >> 16); x += kGroup) {
+        const float v = w * sigmoid(profile_arg(xh, x, g));
+        fix_add_split(&s_acc[c * kXC + (x - x0)], &s_bad[(c >> 5) * kXC + (x - x0)],
+                      1u << (c & 31), v);
+      }
+    }
+    __syncthreads();  // the items are consumed
+  }
+  const int col = threadIdx.x % kXC;
+  const int x = x0 + col;
+  if (x < x1) {
+    float* o = out + (long long)tile * g.tc * g.n + x;
+    for (int c = threadIdx.x / kXC; c < g.tc; c += blockDim.x / kXC)
+      o[(long long)c * g.n] =
+          fix_value(s_acc[c * kXC + col], (s_bad[(c >> 5) * kXC + col] >> (c & 31)) & 1u);
+  }
+}
+
+size_t fused_fwd_smem(int tc, int tb) {
+  return (size_t)tc * (kXC + 1) * sizeof(u64) + (size_t)tb * sizeof(int4) +
+         (size_t)bad_words(tc) * kXC * sizeof(unsigned) + 2 * sizeof(int);
+}
+
+// ---------------------------------------------------------------------
+// B8: a row prefix pass, then the windowed slot gradients.
+// ---------------------------------------------------------------------
+
+// pre[r, x] = sum of g[r, 0..x] in float64, one warp a row.
+__global__ void row_prefix_kernel(const float* __restrict__ g, long long rows, int n,
+                                  double* __restrict__ pre) {
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (r >= rows) return;  // uniform per warp
+  const int lane = threadIdx.x & 31;
+  const float* row = g + r * n;
+  double* out = pre + r * n;
+  double carry = 0.0;
+  for (int x0 = 0; x0 < n; x0 += 32) {
+    const int x = x0 + lane;
+    double v = x < n ? (double)row[x] : 0.0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const double up = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += up;
+    }
+    v += carry;
+    if (x < n) out[x] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// Staged per slot in its kNgrad floats of s_d until the chain rule
+// overwrites them.
+enum { kCy, kCz, kS0, kS1, kS2, kCov, kW, kXh, kWin, kRow, kSa, kSb };
+
+// Per-row sums of a batch's slot cotangents as `row_sums` adds them
+// (slot order, the same float additions), each row scanning only the
+// slots from its first to its last (`s_first`, `s_last`).
+__device__ __forceinline__ void row_sums_ranged(const float* s_d, const int* s_row,
+                                                const int* s_first, const int* s_last,
+                                                int tbl, float* __restrict__ dtab_b) {
+  for (int r = threadIdx.x; r < tbl; r += blockDim.x) {
+    float sum[kNgrad];
+    for (int j = 0; j < kNgrad; ++j) sum[j] = 0.0f;
+    for (int s = s_first[r]; s <= s_last[r]; ++s) {
+      if (s_row[s] != r) continue;
+      for (int j = 0; j < kNgrad; ++j) sum[j] += s_d[s * kNgrad + j];
+    }
+    float* o = dtab_b + (long long)r * kNattr;
+    for (int j = 0; j < kNgrad; ++j) o[j] = sum[j];
+    for (int j = kNgrad; j < kNattr; ++j) o[j] = 0.0f;
+  }
+}
+
+// Grid (num_batches), kThreads threads. A thread a slot rebuilds its
+// fragment and window; kGroup lanes a slot sum its window's columns; a
+// thread a slot adds the saturated prefix and applies the chain rule.
+__global__ void fused_grad_kernel(const float* __restrict__ tables,
                                   const int* __restrict__ tblidx,
-                                  const float* __restrict__ wb,
-                                  const float* __restrict__ xb,
                                   const int* __restrict__ cells,
                                   const int* __restrict__ batch_tile,
-                                  const int* __restrict__ run_start, int tb,
-                                  int tbl, int num_tiles, Geom g,
-                                  float* __restrict__ out) {
-  extern __shared__ unsigned long long acc[];  // [tc][kXC] fixed point
+                                  const float* __restrict__ gocc,
+                                  const double* __restrict__ pre, int tb, int tbl,
+                                  int num_tiles, Geom g, float* __restrict__ dtab) {
+  extern __shared__ float smem[];
+  float* s_d = smem;                       // [tb][kNgrad]
+  int* s_row = (int*)(s_d + tb * kNgrad);  // [tb] table row, -1 = none
+  int* s_first = s_row + tb;               // [tbl]
+  int* s_last = s_first + tbl;             // [tbl]
+  const int b = blockIdx.x;
+  const int tile = batch_tile[b];
+  const bool tile_ok = tile >= 0 && tile < num_tiles;
+  const int glane = threadIdx.x % kGroup;
+  const int groups = blockDim.x / kGroup;
+  const bool geom_ok = window_geom(g);
+
+  for (int r = threadIdx.x; r < tbl; r += blockDim.x) {
+    s_first[r] = tb;
+    s_last[r] = -1;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < tb; s += blockDim.x) {
+    const long long k = (long long)b * tb + s;
+    const int c = cells[k];
+    const float* at = tile_ok && c >= 0 && c < g.tc ? table_row(tables, tblidx, k, b, tbl)
+                                                    : nullptr;
+    s_row[s] = at ? tblidx[k] : -1;
+    if (!at) continue;
+    atomicMin(&s_first[s_row[s]], s);
+    atomicMax(&s_last[s_row[s]], s);
+    const int row = tile * g.tc + c;
+    const Frag f = fused_frag(at, row, g);
+    Window win = {0, g.n};
+    if (isfinite(f.xh) && geom_ok && isfinite(pre[((long long)row + 1) * g.n - 1]))
+      win = slot_window(f.xh, g);
+    float* d = s_d + s * kNgrad;
+    d[kCy] = f.cy;
+    d[kCz] = f.cz;
+    d[kS0] = f.s0;
+    d[kS1] = f.s1;
+    d[kS2] = f.s2;
+    d[kCov] = f.cov;
+    d[kW] = f.w;
+    d[kXh] = f.xh;
+    d[kWin] = __int_as_float(win.a | (win.b << 16));
+    d[kRow] = __int_as_float(row);
+  }
+  __syncthreads();
+  for (int s0 = 0; s0 < tb; s0 += groups) {  // one trip count for every lane
+    const int s = s0 + threadIdx.x / kGroup;
+    const bool live = s < tb && s_row[s] >= 0;
+    float* d = s_d + (live ? s : 0) * kNgrad;
+    float sa = 0.0f, sb = 0.0f;
+    if (live) {
+      const float xh = d[kXh];
+      const int win = __float_as_int(d[kWin]);
+      const float* grow = gocc + (long long)__float_as_int(d[kRow]) * g.n;
+      for (int x = (win & 0xffff) + glane; x < (win >> 16); x += kGroup) {
+        const float sig = sigmoid(profile_arg(xh, x, g));
+        const float ps = grow[x] * sig;
+        sa += ps;
+        sb += ps * (1.0f - sig);
+      }
+    }
+    for (int off = kGroup / 2; off > 0; off >>= 1) {
+      sa += __shfl_xor_sync(0xffffffffu, sa, off);
+      sb += __shfl_xor_sync(0xffffffffu, sb, off);
+    }
+    __syncwarp();  // every lane has read d before its group's first lane writes it
+    if (live && glane == 0) {
+      d[kSa] = sa;
+      d[kSb] = sb;
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < tb; s += blockDim.x) {
+    if (s_row[s] < 0) continue;
+    float* d = s_d + s * kNgrad;
+    const Frag f = {d[kCy], d[kCz], d[kS0], d[kS1], d[kS2], d[kCov], d[kW], d[kXh]};
+    const int a = __float_as_int(d[kWin]) & 0xffff;
+    const long long row = __float_as_int(d[kRow]);
+    const double left = a > 0 ? pre[row * g.n + a - 1] : 0.0;
+    const float dw = (float)(left + (double)d[kSa]);
+    const float dxh = (f.w / g.tau_x) * d[kSb];
+    chain_rule(d, tables + ((long long)b * tbl + s_row[s]) * kNattr, f, dw, dxh, g);
+  }
+  __syncthreads();
+  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab + (long long)b * tbl * kNattr);
+}
+
+// ---------------------------------------------------------------------
+// B13: every (slot, column) pair.
+// ---------------------------------------------------------------------
+
+// B13 fwd. Grid (runs, ceil(n / kXC)), kXC * kLanes threads: a thread
+// owns column threadIdx.x % kXC and every kLanes-th slot (one slot lane
+// per pair of warps, so a warp reads one slot at a time). A run is the
+// batches [run_start[r], run_start[r + 1]) of one tile. Per batch the
+// block first stages every slot's (cell, w, xh) in shared memory.
+__global__ void fragment_accumulate_kernel(const float* __restrict__ wb,
+                                           const float* __restrict__ xb,
+                                           const int* __restrict__ cells,
+                                           const int* __restrict__ batch_tile,
+                                           const int* __restrict__ run_start, int tb,
+                                           int num_tiles, Geom g,
+                                           float* __restrict__ out) {
+  extern __shared__ u64 acc[];                 // [tc][kXC] fixed point
   float* s_w = (float*)(acc + g.tc * kXC);     // [tb]
   float* s_xh = s_w + tb;                      // [tb]
   int* s_cell = (int*)(s_xh + tb);             // [tb]
@@ -99,19 +480,8 @@ __global__ void accumulate_kernel(const float* __restrict__ tables,
       int c = cells[k];
       float w = 0.0f, xh = 0.0f;
       if (c >= 0 && c < g.tc) {
-        if (kFused) {
-          const float* at = table_row(tables, tblidx, k, b, tbl);
-          if (at) {
-            const Frag f = fused_frag(at, tile * g.tc + c, g);
-            w = f.w;
-            xh = f.xh;
-          } else {
-            c = -1;
-          }
-        } else {
-          w = wb[k];
-          xh = xb[k];
-        }
+        w = wb[k];
+        xh = xb[k];
       } else {
         c = -1;
       }
@@ -136,23 +506,16 @@ __global__ void accumulate_kernel(const float* __restrict__ tables,
   }
 }
 
-// B8 / B13 bwd. Grid (num_batches), kBwdThreads threads, one warp per
-// slot at a time.
-template <bool kFused>
-__global__ void slot_grad_kernel(const float* __restrict__ tables,
-                                 const int* __restrict__ tblidx,
-                                 const float* __restrict__ wb,
-                                 const float* __restrict__ xb,
-                                 const int* __restrict__ cells,
-                                 const int* __restrict__ batch_tile,
-                                 const float* __restrict__ gocc, int tb,
-                                 int tbl, int num_tiles, Geom g,
-                                 float* __restrict__ dtab,
-                                 float* __restrict__ dw_out,
-                                 float* __restrict__ dx_out) {
-  extern __shared__ float smem[];
-  float* s_d = smem;                       // [tb][kNgrad] (fused)
-  int* s_row = (int*)(s_d + tb * kNgrad);  // [tb] table row, -1 = none
+// B13 bwd. Grid (num_batches), kThreads threads, one warp per slot at
+// a time.
+__global__ void fragment_grad_kernel(const float* __restrict__ wb,
+                                     const float* __restrict__ xb,
+                                     const int* __restrict__ cells,
+                                     const int* __restrict__ batch_tile,
+                                     const float* __restrict__ gocc, int tb,
+                                     int num_tiles, Geom g,
+                                     float* __restrict__ dw_out,
+                                     float* __restrict__ dx_out) {
   const int b = blockIdx.x;
   const int tile = batch_tile[b];
   const bool tile_ok = tile >= 0 && tile < num_tiles;
@@ -162,24 +525,12 @@ __global__ void slot_grad_kernel(const float* __restrict__ tables,
   for (int s = threadIdx.x >> 5; s < tb; s += nwarps) {
     const long long k = (long long)b * tb + s;
     const int c = cells[k];
-    const float* at = nullptr;
-    bool live = tile_ok && c >= 0 && c < g.tc;
-    if (kFused && live) {
-      at = table_row(tables, tblidx, k, b, tbl);
-      live = at != nullptr;
-    }
-    Frag f = {};
-    float w = 0.0f, xh = 0.0f;
+    const bool live = tile_ok && c >= 0 && c < g.tc;
+    float w = 0.0f;
     float sa = 0.0f, sb = 0.0f;
     if (live) {  // uniform per warp
-      if (kFused) {
-        f = fused_frag(at, tile * g.tc + c, g);
-        w = f.w;
-        xh = f.xh;
-      } else {
-        w = wb[k];
-        xh = xb[k];
-      }
+      w = wb[k];
+      const float xh = xb[k];
       const float* grow = gocc + ((long long)tile * g.tc + c) * g.n;
       for (int x = lane; x < g.n; x += 32) {
         const float sig = sigmoid((xh - center(g.ox, x, g.vs)) / g.tau_x);
@@ -193,100 +544,79 @@ __global__ void slot_grad_kernel(const float* __restrict__ tables,
       sb += __shfl_xor_sync(0xffffffffu, sb, off);
     }
     if (lane != 0) continue;
-    const float dw = sa;
-    const float dxh = (w / g.tau_x) * sb;
-    if (!kFused) {
-      dw_out[k] = dw;
-      dx_out[k] = dxh;
-      continue;
-    }
-    if (!live) {
-      s_row[s] = -1;
-      continue;
-    }
-    chain_rule(s_d + s * kNgrad, at, f, dw, dxh, g);
-    s_row[s] = tblidx[k];
+    dw_out[k] = sa;
+    dx_out[k] = (w / g.tau_x) * sb;
   }
-  if (!kFused) return;
-  __syncthreads();
-  row_sums(s_d, s_row, tb, tbl, dtab + (long long)b * tbl * kNattr);
 }
 
-size_t fwd_smem(int tc, int tb) {
-  return (size_t)tc * kXC * sizeof(unsigned long long) +
-         3 * (size_t)tb * sizeof(float) +
+size_t fragment_fwd_smem(int tc, int tb) {
+  return (size_t)tc * kXC * sizeof(u64) + 3 * (size_t)tb * sizeof(float) +
          (size_t)bad_words(tc) * kXC * sizeof(unsigned);
 }
 
-template <bool kFused>
-int launch_fwd(const void* tables, const void* tblidx, const void* wb,
-               const void* xb, const void* cells, const void* batch_tile,
-               const void* run_start, int num_runs, int tb, int tbl,
-               int num_tiles, Geom g, void* out, void* stream) {
-  const size_t smem = fwd_smem(g.tc, tb);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        accumulate_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(num_runs, (g.n + kXC - 1) / kXC);
-  accumulate_kernel<kFused><<<grid, kXC * kLanes, smem, (cudaStream_t)stream>>>(
-      (const float*)tables, (const int*)tblidx, (const float*)wb,
-      (const float*)xb, (const int*)cells, (const int*)batch_tile,
-      (const int*)run_start, tb, tbl, num_tiles, g, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-template <bool kFused>
-int launch_bwd(const void* tables, const void* tblidx, const void* wb,
-               const void* xb, const void* cells, const void* batch_tile,
-               const void* gocc, int num_batches, int tb, int tbl,
-               int num_tiles, Geom g, void* dtab, void* dw, void* dx,
-               void* stream) {
-  const size_t smem = (size_t)tb * (kNgrad + 1) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        slot_grad_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  slot_grad_kernel<kFused><<<num_batches, kBwdThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const float*)tables, (const int*)tblidx, (const float*)wb,
-      (const float*)xb, (const int*)cells, (const int*)batch_tile,
-      (const float*)gocc, tb, tbl, num_tiles, g, (float*)dtab, (float*)dw,
-      (float*)dx);
-  return (int)cudaGetLastError();
+// Lift a kernel's dynamic shared memory limit where it needs more than
+// the default 48 KB.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace
 
 // B7: (B, tbl, 16) tables -> out (num_tiles * tc, n) floats, zeroed;
-// only the tiles of the runs are written.
+// only the tiles of the runs are written. `work` holds B * tb int4
+// slot records.
 extern "C" int vt_fused_fwd(const void* tables, const void* cells,
                             const void* tblidx, const void* batch_tile,
-                            const void* run_start, int num_runs, int tb,
-                            int tbl, int n, int tc, int num_tiles, float ox,
-                            float oy, float oz, float vs, float tau_e,
-                            float tau_x, void* out, void* stream) {
+                            const void* run_start, int num_batches, int num_runs,
+                            int tb, int tbl, int n, int tc, int num_tiles, float ox,
+                            float oy, float oz, float vs, float tau_e, float tau_x,
+                            void* work, void* out, void* stream) {
   const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc, 0};
-  return launch_fwd<true>(tables, tblidx, nullptr, nullptr, cells, batch_tile,
-                          run_start, num_runs, tb, tbl, num_tiles, g, out,
-                          stream);
+  if (n >= (1 << 15)) return (int)cudaErrorInvalidValue;  // a | b << 16 in an int
+  const long long slots = (long long)num_batches * tb;
+  const cudaStream_t st = (cudaStream_t)stream;
+  fused_window_kernel<<<(unsigned)((slots + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      (const float*)tables, (const int*)tblidx, (const int*)cells, (const int*)batch_tile,
+      slots, tb, tbl, num_tiles, g, (int4*)work);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t smem = fused_fwd_smem(tc, tb);
+  e = allow_smem(fused_accumulate_kernel, smem);
+  if (e) return e;
+  const int chunks = (n + kXC - 1) / kXC;
+  fused_accumulate_kernel<<<(unsigned)((long long)num_runs * chunks), kFwdThreads, smem,
+                            st>>>(
+      (const int4*)work, (const int*)batch_tile, (const int*)run_start, tb, num_tiles, chunks,
+      g, (float*)out);
+  return (int)cudaGetLastError();
 }
 
-// B8: cotangent g (num_tiles * tc, n) -> dtab (B, tbl, 16).
+// B8: cotangent g (num_tiles * tc, n) -> dtab (B, tbl, 16). `pre` holds
+// (num_tiles * tc, n) doubles, g's row prefix.
 extern "C" int vt_fused_bwd(const void* tables, const void* cells,
                             const void* tblidx, const void* batch_tile,
                             const void* gocc, int num_batches, int tb,
                             int tbl, int n, int tc, int num_tiles, float ox,
                             float oy, float oz, float vs, float tau_e,
-                            float tau_x, void* dtab, void* stream) {
+                            float tau_x, void* pre, void* dtab, void* stream) {
   const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc, 0};
-  return launch_bwd<true>(tables, tblidx, nullptr, nullptr, cells, batch_tile,
-                          gocc, num_batches, tb, tbl, num_tiles, g, dtab,
-                          nullptr, nullptr, stream);
+  if (n >= (1 << 15)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = (long long)num_tiles * tc;
+  row_prefix_kernel<<<(unsigned)((rows * 32 + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      (const float*)gocc, rows, n, (double*)pre);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t smem = (size_t)tb * (kNgrad + 1) * sizeof(float) + 2 * (size_t)tbl * sizeof(int);
+  e = allow_smem(fused_grad_kernel, smem);
+  if (e) return e;
+  fused_grad_kernel<<<num_batches, kThreads, smem, st>>>(
+      (const float*)tables, (const int*)tblidx, (const int*)cells, (const int*)batch_tile,
+      (const float*)gocc, (const double*)pre, tb, tbl, num_tiles, g, (float*)dtab);
+  return (int)cudaGetLastError();
 }
 
 // B13 fwd: per-slot (w, xh) (B, tb) -> out as for B7.
@@ -297,9 +627,14 @@ extern "C" int vt_fragment_fwd(const void* wb, const void* xb,
                                float vs, float tau_x, void* out,
                                void* stream) {
   const Geom g = {ox, 0.0f, 0.0f, vs, 1.0f, tau_x, n, tc, 0};
-  return launch_fwd<false>(nullptr, nullptr, wb, xb, cells, batch_tile,
-                           run_start, num_runs, tb, 0, num_tiles, g, out,
-                           stream);
+  const size_t smem = fragment_fwd_smem(tc, tb);
+  const int e = allow_smem(fragment_accumulate_kernel, smem);
+  if (e) return e;
+  const dim3 grid(num_runs, (n + kXC - 1) / kXC);
+  fragment_accumulate_kernel<<<grid, kXC * kLanes, smem, (cudaStream_t)stream>>>(
+      (const float*)wb, (const float*)xb, (const int*)cells, (const int*)batch_tile,
+      (const int*)run_start, tb, num_tiles, g, (float*)out);
+  return (int)cudaGetLastError();
 }
 
 // B13 bwd: cotangent g -> per-slot (dw, dxh), each (B, tb).
@@ -310,7 +645,8 @@ extern "C" int vt_fragment_bwd(const void* wb, const void* xb,
                                float vs, float tau_x, void* dw, void* dx,
                                void* stream) {
   const Geom g = {ox, 0.0f, 0.0f, vs, 1.0f, tau_x, n, tc, 0};
-  return launch_bwd<false>(nullptr, nullptr, wb, xb, cells, batch_tile, gocc,
-                           num_batches, tb, 0, num_tiles, g, nullptr, dw, dx,
-                           stream);
+  fragment_grad_kernel<<<num_batches, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)wb, (const float*)xb, (const int*)cells, (const int*)batch_tile,
+      (const float*)gocc, tb, num_tiles, g, (float*)dw, (float*)dx);
+  return (int)cudaGetLastError();
 }

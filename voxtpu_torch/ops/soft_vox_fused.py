@@ -14,6 +14,11 @@ carries a table of its triangles' rows (at most `tbl`), and
   the 13 coefficient cotangents and sums those per table row, one
   (tbl, 16) block per batch.
 
+Both kernels evaluate a slot's sigmoid only in its transition window
+of columns and take the saturated columns without it (the note in
+`csrc/soft_vox.cu`): B7's output is bitwise the full-row sum's, B8 reads
+the saturated columns' cotangent sum from a float64 row prefix.
+
 Two gather-only "classed" reductions (`_build_classed_reduction`,
 `_classed_reduce`) carry the table cotangents back to the triangles and
 the triangles' to the vertices: a deterministic, atomic-free segment
@@ -202,14 +207,21 @@ def _check_fused(tables, cells_b, tblidx_b, batch_tile):
 
 
 def fwd_smem_bytes(tc: int, tb: int) -> int:
-    """B7 / B13 fwd shared memory: the (tc, 64) 64-bit fixed-point
+    """B13 fwd shared memory: the (tc, 64) 64-bit fixed-point
     accumulator, three staged 4-byte values per slot and a bit per
     (cell, column) for non-finite terms."""
     return tc * _XC * 8 + 3 * tb * 4 + (tc + 31) // 32 * _XC * 4
 
 
+def fused_fwd_smem_bytes(tc: int, tb: int) -> int:
+    """B7 shared memory: B13 fwd's accumulator and bits, a 16-byte work
+    item per slot instead of the three staged values, a 64-bit base per
+    cell and two counters."""
+    return fwd_smem_bytes(tc, tb) + tb * 4 + tc * 8 + 8
+
+
 def _check_fwd_smem(tc: int, tb: int) -> None:
-    if fwd_smem_bytes(tc, tb) > _SMEM_MAX:
+    if fused_fwd_smem_bytes(tc, tb) > _SMEM_MAX:
         raise ValueError(f"tc={tc}, tb={tb} exceed one block's shared memory")
 
 
@@ -233,11 +245,13 @@ def fused_fwd(tables, cells_b, tblidx_b, batch_tile, run_start, *, n: int,
     out = torch.zeros((n, n, n), dtype=torch.float32, device=tables.device)
     num_runs = run_start.numel() - 1
     if num_runs > 0:
+        # one int4 record per slot: local cell, w, x_hit, window
+        work = torch.empty((cells_b.numel(), 4), dtype=torch.int32, device=out.device)
         _build.launch("vt_fused_fwd", tables.data_ptr(), cells_b.data_ptr(),
                       tblidx_b.data_ptr(), batch_tile.data_ptr(),
-                      run_start.data_ptr(), num_runs, tb, tables.shape[1], n,
-                      tc, (n * n) // tc, *prm, out.data_ptr(),
-                      _build.stream_of(out))
+                      run_start.data_ptr(), tables.shape[0], num_runs, tb,
+                      tables.shape[1], n, tc, (n * n) // tc, *prm,
+                      work.data_ptr(), out.data_ptr(), _build.stream_of(out))
         fused_fwd.launches += 1
     return out
 
@@ -258,10 +272,11 @@ def fused_bwd(tables, cells_b, tblidx_b, batch_tile, g, *, n: int, tc: int,
     num_batches, tbl = tables.shape[0], tables.shape[1]
     dtab = torch.zeros_like(tables)
     if num_batches:
+        pre = torch.empty((n * n, n), dtype=torch.float64, device=g.device)  # row prefix
         _build.launch("vt_fused_bwd", tables.data_ptr(), cells_b.data_ptr(),
                       tblidx_b.data_ptr(), batch_tile.data_ptr(), g.data_ptr(),
                       num_batches, cells_b[0].numel(), tbl, n, tc,
-                      (n * n) // tc, *prm, dtab.data_ptr(),
+                      (n * n) // tc, *prm, pre.data_ptr(), dtab.data_ptr(),
                       _build.stream_of(dtab))
         fused_bwd.launches += 1
     return dtab
