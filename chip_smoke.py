@@ -92,14 +92,16 @@ and no result line:
    again on the refreshed plan, the densest of the path, within the
    same limits. Then `VoxelFit(engine="seg")` runs the same 5 steps
    from the same plan and start: B9 / B10 / B11 held and timed on step
-   1's inputs and held again on its refreshed plan, launches once per
-   step (B9 / B10 also for the final loss), its first loss the fused
-   engine's within 1e-4 relative, its warm step printed beside the
-   fused one. Then `VoxelFit(engine="cuda")` takes 2 steps from the
-   same start on the same plan: B13 fwd / bwd are held and timed as B7
-   / B8 were, and its first loss must equal the fused engine's within
-   1e-4 relative. The kernel table's launches are phase 4's for B1-B5
-   and this phase's for B7-B11 and B13 (phase 4b's for B4 and B12).
+   1's inputs and held again on its refreshed plan (each plan printing
+   its live slots and their mean transition window clipped to the
+   panel, `seg_window_widths`), launches once per step (B9 / B10 also
+   for the final loss), its first loss the fused engine's within 1e-4
+   relative, its warm step printed beside the fused one. Then
+   `VoxelFit(engine="cuda")` takes 2 steps from the same start on the
+   same plan: B13 fwd / bwd are held and timed as B7 / B8 were, and its
+   first loss must equal the fused engine's within 1e-4 relative. The
+   kernel table's launches are phase 4's for B1-B5 and this phase's for
+   B7-B11 and B13 (phase 4b's for B4 and B12).
 7. `python -m voxtpu_torch.examples.fit_vertices --n 64 --steps 10
    --engine fused` on an OBJ written here must exit 0 with an improved
    hard IoU.
@@ -108,8 +110,9 @@ and no result line:
    kernel's launches, error, time, plain time and bound: the larger of
    its bytes over the memory rate and its operations over their peak
    rate, counted from this run's inputs; `bound`; a soft kernel's
-   sigmoids counted over its slots' transition windows only, the
-   every-pair count printed beside it), then the last line
+   sigmoids counted over its slots' transition windows only, clipped to
+   the panel for B9 and B11, the every-pair or every-panel-column count
+   printed beside it), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    Launches are those of each kernel's own path: phase 4's CLI call
    (B1-B3, B5) and `jfa(pipe=True)` (B6); phase 4b's routes (B4, B12,
@@ -170,7 +173,7 @@ CMP_OP_S = 64 * 132 * 1.98e9
 # chain rule to 13 cotangents 30 more (3 divisions).
 # Each (slot, column) pair outside a slot's transition window has a
 # term known without its sigmoid (`window_widths`): the thresholds of
-# csrc/soft_vox.cu (kSatHi, kSatLo) on (xh - cx) / tau_x.
+# csrc/soft_common.cuh (kSatHi, kSatLo) on (xh - cx) / tau_x.
 SAT_HI, SAT_LO = 17.0, -29.0
 PAIR_FWD = (9, 3)
 PAIR_BWD = (14, 3)
@@ -244,14 +247,13 @@ def soft_bound(moved: int, slots: int, pairs: int, backward: bool, rebuild: bool
                  pairs * pair[1] + slots * per_slot[1])
 
 
-def window_widths(xh, ok, n: int, ox: float, vs: float, tau_x: float):
-    """Per slot, the columns whose sigmoid the soft profile needs: the
-    transition window [a, b) of `csrc/soft_vox.cu::slot_window` (left
-    of a the sigmoid is exactly 1, from b on the term rounds to 0 in
-    the fixed point), found as the kernel finds it, by stepping the
-    float32 argument (xh - cx) / tau_x from an estimate; n for a slot
-    that is not `ok` (|w| > 1 or a non-finite x_hit: the whole row).
-    One count for B7, B8 and B13, whatever each kernel evaluates."""
+def window_ends(xh, ok, n: int, ox: float, vs: float, tau_x: float):
+    """Per slot, the transition window [a, b) of
+    `csrc/soft_common.cuh::slot_window` over the row's n columns (left of
+    a the sigmoid is exactly 1, from b on the term rounds to 0 in the
+    fixed point), found as the kernels find it, by stepping the float32
+    argument (xh - cx) / tau_x from an estimate; a slot that is not `ok`
+    gets the window of x_hit = 0."""
     import torch
 
     xh = torch.where(ok, xh, torch.zeros_like(xh))
@@ -274,7 +276,32 @@ def window_widths(xh, ok, n: int, ox: float, vs: float, tau_x: float):
     b = torch.maximum(a, (at - SAT_LO * r + 1.0).clamp(0, n).long())
     b = step(b, lambda c: (c > a) & (arg(c - 1) <= SAT_LO), -1)
     b = step(b, lambda c: (c < n) & (arg(c) > SAT_LO), 1)
+    return a, b
+
+
+def window_widths(xh, ok, n: int, ox: float, vs: float, tau_x: float):
+    """Per slot, the columns of the row whose sigmoid the soft profile
+    needs (`window_ends`); n for a slot that is not `ok` (|w| > 1 or a
+    non-finite x_hit: the whole row). One count for B7, B8 and B13,
+    whatever each kernel evaluates."""
+    import torch
+
+    a, b = window_ends(xh, ok, n, ox, vs, tau_x)
     return torch.where(ok, b - a, torch.full_like(a, n))
+
+
+def seg_window_widths(xh, ok, p0, n: int, ox: float, vs: float, tau_x: float):
+    """Per seg slot, the columns of its panel [p0, p0 + 128) whose
+    sigmoid the profile needs: `window_ends` clipped to the panel (0
+    where the window lies wholly outside it); 128 for a slot that is not
+    `ok` (the whole panel). One count for B9 and B11."""
+    import torch
+
+    from voxtpu_torch.ops.soft_vox_seg import PANEL
+
+    a, b = window_ends(xh, ok, n, ox, vs, tau_x)
+    a, b = (torch.minimum(torch.maximum(e, p0), p0 + PANEL) for e in (a, b))
+    return torch.where(ok, b - a, torch.full_like(a, PANEL))
 
 
 def fused_windows(fp, tables, prm):
@@ -296,8 +323,70 @@ def fused_windows(fp, tables, prm):
     return slots, pairs
 
 
+def seg_windows(plan, tables, prm):
+    """(live slots, (slot, column) pairs in their clipped windows) of a
+    seg plan's tables, the x_hit and w rebuilt as the plain version
+    does."""
+    import torch
+
+    from voxtpu_torch.ops import soft_vox_seg as S
+
+    slots = pairs = 0
+    for b0 in range(0, plan.num_batches, 4096):
+        b1 = min(b0 + 4096, plan.num_batches)
+        valid, _, _, p0, *_, w, xh = S._seg_slots(
+            tables, plan.cells_d, plan.tblidx_d, plan.batch_tile_d, plan.batch_panel_d, b0,
+            b1, n=plan.spec.n, tc=plan.tc, tz=plan.tz, prm=prm)
+        ok = (w.abs() <= 1) & torch.isfinite(xh)
+        widths = seg_window_widths(xh[valid], ok[valid], p0.expand_as(w)[valid], plan.spec.n,
+                                   prm[0], prm[3], prm[5])
+        slots += int(valid.sum())
+        pairs += int(widths.sum())
+    return slots, pairs
+
+
 def live_slots(cells) -> int:
     return int((cells >= 0).sum())
+
+
+def live_keys(tables, cells_b, tblidx_b, tc: int):
+    """(live (B, tb) mask, (B, tb) local cells): the slots whose cell and
+    table row the kernels read, as `soft_vox_fused.slot_rows` takes them."""
+    nb, tbl = tables.shape[0], tables.shape[1]
+    cells = cells_b.reshape(nb, -1).long()
+    idx = tblidx_b.reshape(nb, -1).long()
+    return (cells >= 0) & (cells < tc) & (idx >= 0) & (idx < tbl), cells
+
+
+def table_bytes(tables, cells_b, tblidx_b, tc: int) -> int:
+    """The bytes of the table rows that live slots read, each distinct
+    (batch, row) once: a batch's table has room for more rows than its
+    slots name."""
+    import torch
+
+    live, _ = live_keys(tables, cells_b, tblidx_b, tc)
+    nb, tbl = tables.shape[0], tables.shape[1]
+    keys = (torch.arange(nb, device=tables.device)[:, None] * tbl
+            + tblidx_b.reshape(nb, -1).long())[live]
+    return int(torch.unique(keys).numel()) * tables.shape[2] * tables.element_size()
+
+
+def seg_cotangent_bytes(plan, tables) -> int:
+    """The bytes of the cotangent that B11's function reads: the panel
+    columns of the rows that hold live slots, each distinct (row,
+    64-column half) once (left of a panel gpre stands for the row)."""
+    import torch
+
+    from voxtpu_torch.ops import soft_vox_seg as S
+
+    n = plan.spec.n
+    live, cells = live_keys(tables, plan.cells_d, plan.tblidx_d, plan.tc)
+    gy, gz = S._decode_yz(plan.batch_tile_d.long()[:, None], cells, n=n, tc=plan.tc,
+                          tz=plan.tz)
+    half = (plan.batch_panel_d.long() // S.LATTICE)[:, None]
+    first = ((gz * n + gy) * (n // S.LATTICE) + half)[live]
+    halves = torch.unique(torch.cat([first, first + 1])).numel()
+    return int(halves) * S.LATTICE * 4
 
 
 def seeded_candidates(seed, k: int) -> tuple[int, int]:
@@ -438,7 +527,9 @@ def hold_fused(fp, tables, g, errs, what: str):
     n = fp.spec.n
     print(f"B7 / B8 {what}: {slots:,} live slots, {pairs:,} window pairs, mean window "
           f"{pairs / max(slots, 1):.3f} of {n} columns")
-    moved = {"B7": nbytes(*args, fp.run_start_d, occ), "B8": nbytes(*args, g, dtab)}
+    live = table_bytes(tables, fp.cells_d, fp.tblidx_d, fp.tc)
+    moved = {"B7": live + nbytes(*args[1:], fp.run_start_d, occ),
+             "B8": live + nbytes(*args[1:], g, dtab)}
     bounds = {key: soft_bound(moved[key], slots, pairs, key == "B8") for key in moved}
     for key in moved:
         every = soft_bound(moved[key], slots, slots * n, key == "B8")
@@ -656,11 +747,24 @@ def hold_seg(plan, tables, g, errs, what: str):
     e11 = hold(errs, "B11", dtab, want, GRAD_TOL * top, f"B11 {what}")
     print(f"B9 {what}: max_abs_err {e9:.3e} (limit {OCC_TOL:.0e}); B10 bitwise equal; "
           f"B11 {e11:.3e} (max |plain| {top:.3e}, limit {GRAD_TOL * top:.3e})")
-    slots, n = live_slots(plan.cells_d), plan.spec.n
-    bounds = {"B9": soft_bound(nbytes(*args, plan.run_start_d, *parts), slots,
-                               slots * S.PANEL, False),
-              "B10": bound(nbytes(*parts, occ), 2 * n ** 3),
-              "B11": soft_bound(nbytes(*args, g, gpre, dtab), slots, slots * S.PANEL, True)}
+    slots, pairs = seg_windows(plan, tables, prm)
+    n = plan.spec.n
+    print(f"B9 / B11 {what}: {slots:,} live slots, {pairs:,} window pairs, mean clipped "
+          f"window {pairs / max(slots, 1):.3f} of {S.PANEL} panel columns")
+    live = table_bytes(tables, plan.cells_d, plan.tblidx_d, plan.tc)
+    gread = seg_cotangent_bytes(plan, tables)
+    moved = {"B9": live + nbytes(*args[1:], plan.run_start_d, *parts),
+             "B11": live + gread + nbytes(*args[1:], gpre, dtab)}
+    print(f"B9 / B11 {what}: live table rows {live / 1e6:.3f} MB of {nbytes(tables) / 1e6:.3f}"
+          f" MB; B11's cotangent over the live rows' panels {gread / 1e6:.3f} MB of "
+          f"{nbytes(g) / 1e6:.3f} MB")
+    bounds = {key: soft_bound(moved[key], slots, pairs, key == "B11") for key in moved}
+    for key in moved:
+        every = soft_bound(moved[key], slots, slots * S.PANEL, key == "B11")
+        print(f"{key} {what}: {moved[key] / 1e6:.3f} MB moved; bound {bounds[key][0]:.4f} ms "
+              f"({bounds[key][1]}); counting all {S.PANEL} panel columns {every[0]:.4f} ms "
+              f"({every[1]})")
+    bounds["B10"] = bound(nbytes(*parts, occ), 2 * n ** 3)
     return (lambda: S.seg_fwd(*args, plan.run_start_d, prm=prm, **kw),
             lambda: S.seg_fwd_plain(*args, prm=prm, **kw),
             lambda: S.seg_combine(*parts, **kw),

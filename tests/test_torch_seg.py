@@ -270,6 +270,21 @@ def test_seg_wrappers_validate_arguments(seg):
             (512, 2, 128, 128), (512, 2, 128, 128), (512, 4, 128))), n=N, tc=128, tz=8)
 
 
+def test_seg_bwd_refuses_a_misaligned_cotangent(seg):
+    """B11 reads g four columns a load: a contiguous g whose start is not
+    16-byte aligned is refused on every device, the same contract."""
+    plan = seg["plan"]
+    tables = torch.zeros((plan.num_batches, plan.tbl, 16))
+    args = (plan.cells_d, plan.tblidx_d, plan.batch_tile_d, plan.batch_panel_d)
+    kw = dict(n=N, tc=plan.tc, tz=plan.tz, prm=plan.prm(0.5, 0.5))
+    g = torch.zeros(N ** 3 + 1)[1:].view(N, N, N)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    gpre = soft_vox_seg.seg_gpre(g)
+    with pytest.raises(ValueError, match="g: expected a 16-byte aligned start"):
+        soft_vox_seg.seg_bwd(tables, *args, g, gpre, **kw)
+    assert not soft_vox_seg.seg_bwd(tables, *args, g.clone(), gpre, **kw).any()
+
+
 # ---------------------------------------------------------------------------
 # Guards and the fit
 # ---------------------------------------------------------------------------

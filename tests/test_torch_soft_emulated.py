@@ -252,9 +252,8 @@ def test_exact_ablation_variants_are_bitwise_as_is(lib, tmp_path, variant):
     from tools import ablate_soft_kernels as A
 
     for name in A.VARIANTS:
-        A.variant_source(name)
-    files = {"soft_vox.cu": A.variant_source(variant),
-             "soft_common.cuh": (_build.CSRC / "soft_common.cuh").read_text()}
+        A.variant_sources(name)
+    files = A.variant_sources(variant)
     other = ctypes.CDLL(str(build_host_library(tmp_path, files, ["soft_vox.cu"], variant)))
     for entry in ("vt_fused_fwd", "vt_fused_bwd"):
         getattr(other, entry).argtypes = _build.SIGNATURES[entry]

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of the fused soft kernels (B7, B8) goes, on one CUDA card.
+"""Where the time of the windowed soft kernels (B7, B8, B9, B11) goes, on one CUDA card.
 
     python3 tools/ablate_soft_kernels.py [--n N]   # from the repository root, default 512
 
-Builds `voxtpu_torch/csrc/soft_vox.cu` as it is and in variants that
-each change or take out one part (by exact substitution in the source;
-the tool fails if a substitution no longer applies), then times the C
-entry points `vt_fused_fwd` (B7) and `vt_fused_bwd` (B8) of each on
-step 1 of phase 6's fused fit in `chip_smoke.py` (the 1,348,128-face
-rotated torus at N^3; the loss cotangent for B8), buffers allocated
-once. CUDA events, one warm-up, median of 5.
+Builds `voxtpu_torch/csrc/soft_vox.cu` and `soft_vox_seg.cu` as they
+are and in variants that each change or take out one part (by exact
+substitution in the source or in the `soft_common.cuh` it includes,
+written beside it; the tool fails if a substitution no longer applies),
+then times the C entry points of each: `vt_fused_fwd` (B7)
+and `vt_fused_bwd` (B8) on step 1 of phase 6's fused fit in
+`chip_smoke.py` (the 1,348,128-face rotated torus at N^3; the loss
+cotangent for B8), `vt_seg_fwd` (B9) and `vt_seg_bwd` (B11) on step 1
+of its seg fit from the same start; buffers allocated once (so B9's
+times leave out the wrapper's zeroed family arrays). CUDA events, one
+warm-up, median of 5.
 
   as_is           the kernels as they are
   b7_cas          B7's 64-bit shared adds as atomicAdd on the 64-bit word
@@ -23,10 +27,20 @@ once. CUDA events, one warm-up, median of 5.
   b8_no_rows      B8 without its table-row sums (not exact: timing)
   b8_no_windows   B8 without its window columns (not exact: timing)
   b8_prefix       B8's row prefix pass alone (timing)
+  seg_as_is       B9 and B11 as they are
+  b9_records      B9's record pass alone (timing)
+  b9_no_carry     B9 without its saturated columns and carry (not exact)
+  b9_no_windows   B9 without its window columns (not exact: timing)
+  b11_no_left     B11's lanes starting at the window, without the
+                  in-panel prefix left of it (not exact: timing)
+  b11_no_windows  B11 without its lane loop over the panel (timing)
+  b11_no_rows     B11 without its table-row sums (not exact: timing)
 
 Prints the card's name and power limit, each variant's ptxas lines for
-the fused kernels, and per variant the B7 and B8 times. Exits non-zero
-if a build fails or an exact variant differs from `as_is`.
+the soft kernels, and per variant the times of its two kernels. Exits
+non-zero if a build fails or an exact variant differs from the wrapper's
+result (`as_is`, `b7_cas`, `b8_row_sums` against the fused wrappers,
+`seg_as_is` against the seg ones).
 """
 
 from __future__ import annotations
@@ -48,22 +62,22 @@ from chip_smoke import TAU, bitwise_equal, card_line, cuda_ms, loss_cotangent  #
 from tools.check_fused_window import torus_fit  # noqa: E402
 from voxtpu_torch import _build  # noqa: E402
 from voxtpu_torch.ops import soft_vox_fused as F  # noqa: E402
+from voxtpu_torch.ops import soft_vox_seg as S  # noqa: E402
 
-SRC = _build.CSRC / "soft_vox.cu"
-EXACT = ("as_is", "b7_cas", "b8_row_sums")
+FUSED, SEG, COMMON = "soft_vox.cu", "soft_vox_seg.cu", "soft_common.cuh"
+EXACT = ("as_is", "b7_cas", "b8_row_sums", "seg_as_is")
 SKIP = "g.n < 0 && "  # a condition that never holds, in front of a loop's own
 
-VARIANTS = {
+FUSED_VARIANTS = {
     "as_is": [],
-    "b7_cas": [("    add_split(&s_base[r.x], fix);", "    atomicAdd(&s_base[r.x], fix);"),
+    "b7_cas": [("    add_split(&s.base[r.x], fix);", "    atomicAdd(&s.base[r.x], fix);"),
                ("if (a < x1) add_split(", "if (a < x1) atomicAdd("),
-               ("fix_add_split(&s_acc", "fix_add(&s_acc")],
-    "b7_no_carry": [("if (r.x < 0 || a <= x0) continue;",
-                     "if (r.x < 0 || a <= x0 || g.n > 0) continue;")],
+               ("fix_add_split(&s.acc", "fix_add(&s.acc")],
+    "b7_no_carry": [("    if (r.x < 0) continue;", "    if (r.x < 0 || g.n > 0) continue;")],
     "b7_no_windows": [("for (int i = threadIdx.x / kGroup; i < count;",
                        f"for (int i = threadIdx.x / kGroup; {SKIP}i < count;")],
-    "b7_records": [("  const size_t smem = fused_fwd_smem(tc, tb);",
-                    "  if (n > 0) return 0;\n  const size_t smem = fused_fwd_smem(tc, tb);")],
+    "b7_records": [("  const size_t smem = acc_smem_bytes(tc, tb);",
+                    "  if (n > 0) return 0;\n  const size_t smem = acc_smem_bytes(tc, tb);")],
     "b8_row_sums": [("  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab",
                      "  row_sums(s_d, s_row, tb, tbl, dtab")],
     "b8_no_rows": [("  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab",
@@ -73,29 +87,57 @@ VARIANTS = {
     "b8_prefix": [("  const size_t smem = (size_t)tb * (kNgrad + 1)",
                    "  if (n > 0) return 0;\n  const size_t smem = (size_t)tb * (kNgrad + 1)")],
 }
+SEG_VARIANTS = {
+    "seg_as_is": [],
+    "b9_records": [("  const size_t smem = acc_smem_bytes(tc, tb);",
+                    "  if (n > 0) return 0;\n  const size_t smem = acc_smem_bytes(tc, tb);")],
+    "b9_no_carry": [("    if (r.x < 0) continue;", "    if (r.x < 0 || g.n > 0) continue;")],
+    "b9_no_windows": [("for (int i = threadIdx.x / kGroup; i < count;",
+                       f"for (int i = threadIdx.x / kGroup; {SKIP}i < count;")],
+    "b11_no_left": [("for (int q = glane; 4 * q < a - p0;",
+                     f"for (int q = glane; {SKIP}4 * q < a - p0;")],
+    "b11_no_windows": [("for (int q = glane; 4 * q < a - p0;",
+                        f"for (int q = glane; {SKIP}4 * q < a - p0;"),
+                       ("for (int x = a + glane; x < (win >> 16);",
+                        f"for (int x = a + glane; {SKIP}x < (win >> 16);")],
+    "b11_no_rows": [("  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab",
+                     "  if (g.n < 0) row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab")],
+}
+# variant -> (source file, substitutions)
+VARIANTS = {**{k: (FUSED, v) for k, v in FUSED_VARIANTS.items()},
+            **{k: (SEG, v) for k, v in SEG_VARIANTS.items()}}
+ENTRIES = {FUSED: ("vt_fused_fwd", "vt_fused_bwd"), SEG: ("vt_seg_fwd", "vt_seg_bwd")}
 
 
-def variant_source(name: str) -> str:
-    text = SRC.read_text()
-    for old, new in VARIANTS[name]:
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: the source no longer holds {old!r} exactly once")
-        text = text.replace(old, new)
-    return text
+def variant_sources(name: str) -> dict:
+    """{file name: text} of a variant: its source and the shared header,
+    each substitution made in the one of them that holds it."""
+    source, subs = VARIANTS[name]
+    texts = {f: (_build.CSRC / f).read_text() for f in (source, COMMON)}
+    for old, new in subs:
+        where = [f for f, text in texts.items() if old in text]
+        if len(where) != 1 or texts[where[0]].count(old) != 1:
+            raise SystemExit(f"{name}: the sources no longer hold {old!r} exactly once")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    return texts
 
 
 def build_all(out_dir: str) -> dict:
-    """{variant: ctypes library}, one nvcc per variant, started together;
-    prints the fused kernels' ptxas lines."""
+    """{variant: ctypes library}, one nvcc per variant, started together,
+    each in a directory of its own (its source includes the header
+    beside it); prints the soft kernels' ptxas lines."""
     procs = {}
     for name in VARIANTS:
-        src = os.path.join(out_dir, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(variant_source(name))
-        so = os.path.join(out_dir, f"{name}.so")
+        vdir = os.path.join(out_dir, name)
+        os.mkdir(vdir)
+        for fname, text in variant_sources(name).items():
+            with open(os.path.join(vdir, fname), "w") as f:
+                f.write(text)
+        so = os.path.join(vdir, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", so,
-             src], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
+             os.path.join(vdir, VARIANTS[name][0])],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         log = proc.communicate()[1]
@@ -103,18 +145,112 @@ def build_all(out_dir: str) -> dict:
             raise SystemExit(f"{name}: nvcc failed\n{log[-4000:]}")
         kernel = None
         for line in log.splitlines():
-            found = re.search(r"Compiling entry function '\w*?((?:fused|row)_\w+?_kernel)", line)
+            found = re.search(r"Compiling entry function '\w*?((?:fused|row|seg)_\w+?_kernel)",
+                              line)
             if found:
                 kernel = found.group(1)
             elif kernel and "Used" in line:
                 print(f"{name}: {kernel}: {line.split(':', 1)[1].strip()}")
                 kernel = None
         lib = ctypes.CDLL(so)
-        for entry in ("vt_fused_fwd", "vt_fused_bwd"):
+        for entry in ENTRIES[VARIANTS[name][0]]:
             getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def time_fused(libs: dict, n: int) -> bool:
+    """B7 and B8 of each soft_vox.cu variant on the fused fit's step 1."""
+    fit, state, target = torus_fit(n)
+    fp = fit.engine_plan
+    n, tc, tb, prm = fp.spec.n, fp.tc, fp.cells_d[0].numel(), fp.prm(*TAU)
+    with torch.no_grad():
+        tables = F.tables_of(state.coords, fp)
+    occ_ref = F.fused_fwd(tables, fp.cells_d, fp.tblidx_d, fp.batch_tile_d, fp.run_start_d,
+                          n=n, tc=tc, prm=prm)
+    g = loss_cotangent(occ_ref, target)
+    dtab_ref = F.fused_bwd(tables, fp.cells_d, fp.tblidx_d, fp.batch_tile_d, g, n=n, tc=tc,
+                           prm=prm)
+    ptrs = (tables.data_ptr(), fp.cells_d.data_ptr(), fp.tblidx_d.data_ptr(),
+            fp.batch_tile_d.data_ptr())
+    work = torch.empty((fp.cells_d.numel(), 4), dtype=torch.int32, device=g.device)
+    pre = torch.empty((n * n, n), dtype=torch.float64, device=g.device)
+    stream = _build.stream_of(g)
+    ok = True
+    for name, lib in libs.items():
+        out = torch.zeros_like(occ_ref)
+        dtab = torch.zeros_like(tables)
+
+        def b7():
+            err = lib.vt_fused_fwd(*ptrs, fp.run_start_d.data_ptr(), tables.shape[0],
+                                   fp.run_start_d.numel() - 1, tb, tables.shape[1], n, tc,
+                                   n * n // tc, *prm, work.data_ptr(), out.data_ptr(), stream)
+            assert err == 0, f"{name} B7: CUDA error {err}"
+
+        def b8():
+            err = lib.vt_fused_bwd(*ptrs, g.data_ptr(), tables.shape[0], tb, tables.shape[1],
+                                   n, tc, n * n // tc, *prm, pre.data_ptr(), dtab.data_ptr(),
+                                   stream)
+            assert err == 0, f"{name} B8: CUDA error {err}"
+
+        b7()
+        b8()
+        torch.cuda.synchronize()
+        if name in EXACT:
+            same = bitwise_equal(out, occ_ref) and bitwise_equal(dtab, dtab_ref)
+            ok &= same
+            print(f"{name}: B7 and B8 bitwise the wrappers': {same}")
+        print(f"{name}: B7 {cuda_ms(b7):.4f} ms, B8 {cuda_ms(b8):.4f} ms", flush=True)
+    del fit, state, target, fp, tables, occ_ref, g, dtab_ref, work, pre
+    torch.cuda.empty_cache()
+    return ok
+
+
+def time_seg(libs: dict, n: int) -> bool:
+    """B9 and B11 of each soft_vox_seg.cu variant on the seg fit's step 1."""
+    fit, state, target = torus_fit(n, "seg")
+    sp = fit.engine_plan
+    n, tc, tz, tb, prm = sp.spec.n, sp.tc, sp.tz, sp.cells_d[0].numel(), sp.prm(*TAU)
+    args = (sp.cells_d, sp.tblidx_d, sp.batch_tile_d, sp.batch_panel_d)
+    kw = dict(n=n, tc=tc, tz=tz)
+    with torch.no_grad():
+        tables = F.tables_of(state.coords, sp)
+    parts_ref = S.seg_fwd(tables, *args, sp.run_start_d, prm=prm, **kw)
+    g = loss_cotangent(S.seg_combine(*parts_ref, **kw), target)
+    gpre = S.seg_gpre(g)
+    dtab_ref = S.seg_bwd(tables, *args, g, gpre, prm=prm, **kw)
+    ptrs = (tables.data_ptr(), *(t.data_ptr() for t in args))
+    work = torch.empty((sp.cells_d.numel(), 4), dtype=torch.int32, device=g.device)
+    stream = _build.stream_of(g)
+    nt = n * n // tc
+    ok = True
+    for name, lib in libs.items():
+        parts = tuple(torch.zeros_like(p) for p in parts_ref)
+        dtab = torch.zeros_like(tables)
+
+        def b9():
+            err = lib.vt_seg_fwd(*ptrs, sp.run_start_d.data_ptr(), tables.shape[0],
+                                 sp.run_start_d.numel() - 1, tb, tables.shape[1], n, tc, tz,
+                                 nt, *prm, work.data_ptr(), *(p.data_ptr() for p in parts),
+                                 stream)
+            assert err == 0, f"{name} B9: CUDA error {err}"
+
+        def b11():
+            err = lib.vt_seg_bwd(*ptrs, g.data_ptr(), gpre.data_ptr(), tables.shape[0], tb,
+                                 tables.shape[1], n, tc, tz, nt, *prm, dtab.data_ptr(), stream)
+            assert err == 0, f"{name} B11: CUDA error {err}"
+
+        b9()
+        b11()
+        torch.cuda.synchronize()
+        if name in EXACT:
+            same = (all(bitwise_equal(x, y) for x, y in zip(parts, parts_ref))
+                    and bitwise_equal(dtab, dtab_ref))
+            ok &= same
+            print(f"{name}: B9 and B11 bitwise the wrappers': {same}")
+        print(f"{name}: B9 {cuda_ms(b9):.4f} ms, B11 {cuda_ms(b11):.4f} ms", flush=True)
+    return ok
 
 
 def main() -> int:
@@ -128,47 +264,8 @@ def main() -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         libs = build_all(tmp)
-        fit, state, target = torus_fit(args.n)
-        fp = fit.engine_plan
-        n, tc, tb, prm = fp.spec.n, fp.tc, fp.cells_d[0].numel(), fp.prm(*TAU)
-        with torch.no_grad():
-            tables = F.tables_of(state.coords, fp)
-        occ_ref = F.fused_fwd(tables, fp.cells_d, fp.tblidx_d, fp.batch_tile_d,
-                              fp.run_start_d, n=n, tc=tc, prm=prm)
-        g = loss_cotangent(occ_ref, target)
-        ptrs = (tables.data_ptr(), fp.cells_d.data_ptr(), fp.tblidx_d.data_ptr(),
-                fp.batch_tile_d.data_ptr())
-        work = torch.empty((fp.cells_d.numel(), 4), dtype=torch.int32, device=g.device)
-        pre = torch.empty((n * n, n), dtype=torch.float64, device=g.device)
-        stream = _build.stream_of(g)
-        ok = True
-        for name, lib in libs.items():
-            out = torch.zeros_like(occ_ref)
-            dtab = torch.zeros_like(tables)
-
-            def b7():
-                err = lib.vt_fused_fwd(*ptrs, fp.run_start_d.data_ptr(), tables.shape[0],
-                                       fp.run_start_d.numel() - 1, tb, tables.shape[1], n,
-                                       tc, n * n // tc, *prm, work.data_ptr(),
-                                       out.data_ptr(), stream)
-                assert err == 0, f"{name} B7: CUDA error {err}"
-
-            def b8():
-                err = lib.vt_fused_bwd(*ptrs, g.data_ptr(), tables.shape[0], tb,
-                                       tables.shape[1], n, tc, n * n // tc, *prm,
-                                       pre.data_ptr(), dtab.data_ptr(), stream)
-                assert err == 0, f"{name} B8: CUDA error {err}"
-
-            b7()
-            b8()
-            torch.cuda.synchronize()
-            if name in EXACT:
-                if name == "as_is":
-                    dtab_ref = dtab.clone()
-                same = bitwise_equal(out, occ_ref) and bitwise_equal(dtab, dtab_ref)
-                ok &= same
-                print(f"{name}: B7 and B8 bitwise as_is: {same}")
-            print(f"{name}: B7 {cuda_ms(b7):.4f} ms, B8 {cuda_ms(b8):.4f} ms", flush=True)
+        ok = time_fused({k: v for k, v in libs.items() if VARIANTS[k][0] == FUSED}, args.n)
+        ok &= time_seg({k: v for k, v in libs.items() if VARIANTS[k][0] == SEG}, args.n)
     return 0 if ok else 1
 
 

@@ -60,11 +60,17 @@ PARENT_SIGNATURES = {
 }
 
 
-def parent_library(tree: str) -> ctypes.CDLL:
-    """`tree`'s soft_vox.cu, built alone with this tree's nvcc flags."""
-    src = os.path.join(tree, "voxtpu_torch", "csrc", "soft_vox.cu")
-    digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"parent_soft_vox_{digest}.so"
+def parent_library(tree: str, source: str = "soft_vox.cu",
+                   signatures: dict = PARENT_SIGNATURES) -> ctypes.CDLL:
+    """`tree`'s csrc `source` (with the headers beside it), built alone
+    with this tree's nvcc flags, its entries bound as `signatures` says."""
+    csrc = os.path.join(tree, "voxtpu_torch", "csrc")
+    src = os.path.join(csrc, source)
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(csrc)):
+        if name == source or name.endswith(".cuh"):
+            h.update(open(os.path.join(csrc, name), "rb").read())
+    out = _build.BUILD_DIR / f"parent_{source.split('.')[0]}_{h.hexdigest()[:16]}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -72,9 +78,9 @@ def parent_library(tree: str) -> ctypes.CDLL:
                                src], capture_output=True, text=True)
         if done.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr[-4000:]}")
-        print(f"parent soft_vox.cu built in {time.perf_counter() - t0:.1f} s")
+        print(f"parent {source} built in {time.perf_counter() - t0:.1f} s")
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in PARENT_SIGNATURES.items():
+    for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -160,9 +166,9 @@ def check_plan(fp, coords, target, parent, what: str) -> bool:
     return ok
 
 
-def torus_fit(n: int):
-    """Phase 6's fused fit at n^3 before its first step: (fit, state,
-    target)."""
+def torus_fit(n: int, engine: str = "fused"):
+    """Phase 6's fit at n^3 on `engine` before its first step: (fit,
+    state, target)."""
     mesh = rotated_torus(MAIN_FACES)
     spec = GridSpec.fit(mesh.coords, n)
     vs = spec.voxel_size
@@ -172,7 +178,7 @@ def torus_fit(n: int):
     target = voxelize(mesh, spec, "cuda", device=torch.device("cuda", 0)).to_dense().float()
     plan = make_soft_plan(Mesh(name="start", coords=start, faces=mesh.faces,
                                faces_normals=mesh.faces), spec, pad_window=2)
-    fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine="fused",
+    fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine=engine,
                    refresh_every=4, drift_limit_frac=0.25)
     return fit, fit.init(start), target
 

@@ -38,21 +38,9 @@
 // the batch's slots in slot order.
 //
 // The fused kernels (B7, B8) compute a slot's sigmoid only inside its
-// transition window [a, b) of columns (`slot_window`); B13 evaluates
-// every (slot, column) pair. With v = (xh - cx) / tau_x as every kernel
-// computes it (column centre, subtraction, division, each rounded on
-// its own), v is non-increasing in the column: the centre is a chain
-// of monotone roundings of x, and so are the subtraction and the
-// division by tau_x > 0. The window's ends are found by evaluating v
-// itself at the boundary columns, so the rounding of v and of the
-// centres needs no margin; only expf's does:
-//   - left of a, v >= kSatHi = 17: exp(-17) = 4.14e-8 < 2^-24 = 5.96e-8
-//     with a factor 1.44 to spare (expf is within 2 ulp, CUDA
-//     Programming Guide), so 1 + expf(-v) rounds to 1 and the sigmoid
-//     is exactly 1.0f: the term is w itself, and in B8 1 - sig is 0;
-//   - from b on, v <= kSatLo = -29: expf(-v) >= exp(29) = 3.9e12 >
-//     2^41 (factor 1.79), so sig <= 2^-41 and, for |w| <= 1,
-//     |w * sig| * 2^40 <= 1/2 rounds to 0 in the fixed point.
+// transition window [a, b) of columns (`slot_window` in soft_common.cuh,
+// which says why left of a the sigmoid is exactly 1.0f and from b on a
+// forward term rounds to 0); B13 evaluates every (slot, column) pair.
 // B7 adds the saturated columns' integer __float2ll_rn(w * 2^40), the
 // very integer the full row adds there, through a per-cell difference
 // along the chunk and one scan, and drops the zero columns: its 64-bit
@@ -87,15 +75,10 @@
 
 namespace {
 
-using u64 = unsigned long long;
-
-constexpr int kXC = 64;     // columns per forward block
+constexpr int kXC = kScanCols;  // columns per forward block
 constexpr int kLanes = 4;   // slot lanes per B13 fwd block (kXC x kLanes threads)
 constexpr int kThreads = 256;
 constexpr int kFwdThreads = 512;  // B7's accumulation: 16 warps at 3 blocks an SM
-constexpr int kGroup = 8;         // lanes a windowed slot's columns take (~23 of them)
-constexpr float kSatHi = 17.0f;   // v >= kSatHi: sigmoid(v) == 1.0f
-constexpr float kSatLo = -29.0f;  // v <= kSatLo: the term rounds to 0
 
 // A fused slot's fragment from its global cell (z * n + y).
 __device__ __forceinline__ Frag fused_frag(const float* __restrict__ at,
@@ -104,46 +87,11 @@ __device__ __forceinline__ Frag fused_frag(const float* __restrict__ at,
                  center(g.oz, gcell / g.n, g.vs), g);
 }
 
-// The sigmoid's argument at column x, as every soft kernel computes it.
-__device__ __forceinline__ float profile_arg(float xh, int x, const Geom& g) {
-  return (xh - center(g.ox, x, g.vs)) / g.tau_x;
-}
-
-// Whether `slot_window`'s monotonicity holds for the whole launch.
-__device__ __forceinline__ bool window_geom(const Geom& g) {
-  return g.tau_x > 0.0f && isfinite(g.tau_x) && g.vs > 0.0f && isfinite(g.vs) &&
-         isfinite(g.ox);
-}
-
-// A column index near the real column f, clamped to [0, n].
-__device__ __forceinline__ int clamp_col(float f, int n) {
-  return (int)fminf(fmaxf(f, 0.0f), (float)n);
-}
-
-struct Window {
-  int a, b;
-};
-
-// A slot's transition window at a finite xh (under `window_geom`): the
-// least a with v(a) < kSatHi and the least b with v(b) <= kSatLo (n if
-// none), found from an estimate by stepping v's own values.
-__device__ __forceinline__ Window slot_window(float xh, const Geom& g) {
-  const float at = (xh - g.ox) / g.vs - 0.5f;
-  const float r = g.tau_x / g.vs;
-  int a = clamp_col(at - kSatHi * r, g.n);
-  while (a > 0 && profile_arg(xh, a - 1, g) < kSatHi) --a;
-  while (a < g.n && profile_arg(xh, a, g) >= kSatHi) ++a;
-  int b = max(a, clamp_col(at - kSatLo * r + 1.0f, g.n));
-  while (b > a && profile_arg(xh, b - 1, g) <= kSatLo) --b;
-  while (b < g.n && profile_arg(xh, b, g) > kSatLo) ++b;
-  return {a, b};
-}
-
 // ---------------------------------------------------------------------
 // B7: a record pass, then the windowed accumulation.
 // ---------------------------------------------------------------------
 
-// One thread a slot: its record (local cell or -1, w, xh, a | b << 16).
+// One thread a slot: its record (`slot_record` over the row).
 __global__ void fused_window_kernel(const float* __restrict__ tables,
                                     const int* __restrict__ tblidx,
                                     const int* __restrict__ cells,
@@ -155,79 +103,21 @@ __global__ void fused_window_kernel(const float* __restrict__ tables,
   const int b = (int)(k / tb);
   const int tile = batch_tile[b];
   const int c = cells[k];
-  int4 r = make_int4(-1, 0, 0, 0);
-  if (tile >= 0 && tile < num_tiles && c >= 0 && c < g.tc) {
-    const float* at = table_row(tables, tblidx, k, b, tbl);
-    if (at) {
-      const Frag f = fused_frag(at, tile * g.tc + c, g);
-      Window win = {0, g.n};
-      if (fabsf(f.w) <= 1.0f && isfinite(f.xh) && window_geom(g)) win = slot_window(f.xh, g);
-      r = make_int4(c, __float_as_int(f.w), __float_as_int(f.xh), win.a | (win.b << 16));
-    }
-  }
-  rec[k] = r;
+  const float* at = tile >= 0 && tile < num_tiles && c >= 0 && c < g.tc
+                        ? table_row(tables, tblidx, k, b, tbl)
+                        : nullptr;
+  rec[k] = at ? slot_record(c, fused_frag(at, tile * g.tc + c, g), 0, g.n, g)
+              : make_int4(-1, 0, 0, 0);
 }
 
-// acc += v (mod 2^64) as two native 32-bit shared atomics, the low
-// word's carry added to the high word: the words' sums, and so the
-// 64-bit value once every add is done, do not depend on the order
-// (a 64-bit shared atomicAdd compiles to a compare-and-swap loop,
-// ATOMS.CAST.SPIN.64, on sm_90a).
-__device__ __forceinline__ void add_split(u64* acc, u64 v) {
-  unsigned* word = (unsigned*)acc;  // little-endian: the low word first
-  const unsigned lo = (unsigned)v;
-  const unsigned old = atomicAdd(word, lo);
-  const unsigned hi = (unsigned)(v >> 32) + (old + lo < old ? 1u : 0u);
-  if (hi) atomicAdd(word + 1, hi);
-}
-
-// `fix_add` through `add_split`.
-__device__ __forceinline__ void fix_add_split(u64* acc, unsigned* bad, unsigned bit,
-                                              float v) {
-  if (fabsf(v) <= 1.0f)
-    add_split(acc, (u64)__float2ll_rn(v * kFix));
-  else
-    atomicOr(bad, bit);
-}
-
-// Each cell's row of kXC fixed-point differences -> its base plus their
-// inclusive scan, one warp a cell, two columns a lane.
-static_assert(kXC == 64, "scan_rows: a warp's 32 lanes take two columns each");
-__device__ __forceinline__ void scan_rows(u64* acc, const u64* base, int tc) {
-  const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x >> 5; c < tc; c += blockDim.x >> 5) {
-    u64* row = acc + c * kXC + 2 * lane;
-    const u64 d0 = row[0];
-    const u64 pair = d0 + row[1];
-    u64 incl = pair;
-    for (int off = 1; off < 32; off <<= 1) {
-      const u64 up = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += up;
-    }
-    incl += base[c];
-    row[0] = incl - pair + d0;
-    row[1] = incl;
-  }
-}
-
-// Grid (num_runs * chunks), kFwdThreads threads: block (run, chunk) owns
-// columns [x0, x1) of the run's tile. Pass 1 adds the saturated columns:
-// w's integer to its cell's base (every column) where a > x0, and its
-// negation as a difference at a where a falls inside the chunk; then
-// each row is scanned. Pass 2, per batch, lists the slots whose window
-// meets the chunk and gives each listed slot kGroup lanes over its
-// columns there. The base is an array of its own because the rows'
-// first columns all lie in one shared-memory bank.
+// Grid (num_runs * chunks), kFwdThreads threads: block (run, chunk) sums
+// columns [x0, x1) of the run's tile (`accumulate_windows`).
 __global__ void fused_accumulate_kernel(const int4* __restrict__ rec,
                                         const int* __restrict__ batch_tile,
                                         const int* __restrict__ run_start, int tb,
                                         int num_tiles, int chunks, Geom g,
                                         float* __restrict__ out) {
-  extern __shared__ u64 s_acc[];                             // [tc][kXC]
-  int4* s_item = (int4*)(s_acc + g.tc * kXC);                // [tb]
-  u64* s_base = (u64*)(s_item + tb);                         // [tc]
-  unsigned* s_bad = (unsigned*)(s_base + g.tc);              // [tc / 32][kXC]
-  int* s_count = (int*)(s_bad + bad_words(g.tc) * kXC);      // [2]
+  extern __shared__ u64 smem_acc[];
   const int run = blockIdx.x / chunks;
   const int x0 = (blockIdx.x % chunks) * kXC;
   const int x1 = min(x0 + kXC, g.n);
@@ -236,63 +126,9 @@ __global__ void fused_accumulate_kernel(const int4* __restrict__ rec,
   if (b1 <= b0) return;
   const int tile = batch_tile[b0];
   if (tile < 0 || tile >= num_tiles) return;  // uniform per block
-  const int glane = threadIdx.x % kGroup;
-
-  for (int i = threadIdx.x; i < g.tc * kXC; i += blockDim.x) s_acc[i] = 0ull;
-  for (int i = threadIdx.x; i < bad_words(g.tc) * kXC; i += blockDim.x) s_bad[i] = 0u;
-  for (int c = threadIdx.x; c < g.tc; c += blockDim.x) s_base[c] = 0ull;
-  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
-  __syncthreads();
-  const long long k1 = (long long)b1 * tb;
-  for (long long k = (long long)b0 * tb + threadIdx.x; k < k1; k += blockDim.x) {
-    const int4 r = rec[k];
-    const int a = r.w & 0xffff;
-    if (r.x < 0 || a <= x0) continue;
-    const u64 fix = (u64)__float2ll_rn(__int_as_float(r.y) * kFix);
-    add_split(&s_base[r.x], fix);
-    if (a < x1) add_split(&s_acc[r.x * kXC + (a - x0)], 0ull - fix);
-  }
-  __syncthreads();
-  scan_rows(s_acc, s_base, g.tc);
-
-  for (int b = b0; b < b1; ++b) {
-    int* count_b = s_count + (b & 1);  // reset a batch before its use
-    for (int s = threadIdx.x; s < tb; s += blockDim.x) {
-      const int4 r = rec[(long long)b * tb + s];
-      const int lo = max(r.w & 0xffff, x0);
-      const int hi = min(r.w >> 16, x1);
-      if (r.x >= 0 && lo < hi)
-        s_item[atomicAdd(count_b, 1)] = make_int4(r.x, r.y, r.z, lo | (hi << 16));
-    }
-    __syncthreads();
-    const int count = *count_b;
-    if (threadIdx.x == 0) s_count[(b & 1) ^ 1] = 0;
-    for (int i = threadIdx.x / kGroup; i < count; i += blockDim.x / kGroup) {
-      const int4 it = s_item[i];
-      const int c = it.x;
-      const float w = __int_as_float(it.y);
-      const float xh = __int_as_float(it.z);
-      for (int x = (it.w & 0xffff) + glane; x < (it.w >> 16); x += kGroup) {
-        const float v = w * sigmoid(profile_arg(xh, x, g));
-        fix_add_split(&s_acc[c * kXC + (x - x0)], &s_bad[(c >> 5) * kXC + (x - x0)],
-                      1u << (c & 31), v);
-      }
-    }
-    __syncthreads();  // the items are consumed
-  }
-  const int col = threadIdx.x % kXC;
-  const int x = x0 + col;
-  if (x < x1) {
-    float* o = out + (long long)tile * g.tc * g.n + x;
-    for (int c = threadIdx.x / kXC; c < g.tc; c += blockDim.x / kXC)
-      o[(long long)c * g.n] =
-          fix_value(s_acc[c * kXC + col], (s_bad[(c >> 5) * kXC + col] >> (c & 31)) & 1u);
-  }
-}
-
-size_t fused_fwd_smem(int tc, int tb) {
-  return (size_t)tc * (kXC + 1) * sizeof(u64) + (size_t)tb * sizeof(int4) +
-         (size_t)bad_words(tc) * kXC * sizeof(unsigned) + 2 * sizeof(int);
+  const AccSmem s = acc_smem(smem_acc, g.tc, tb);
+  accumulate_windows(s, rec, b0, b1, tb, x0, x1, false, g);
+  store_windows(s, g.tc, x1 - x0, out + (long long)tile * g.tc * g.n + x0, g.n);
 }
 
 // ---------------------------------------------------------------------
@@ -318,29 +154,6 @@ __global__ void row_prefix_kernel(const float* __restrict__ g, long long rows, i
     v += carry;
     if (x < n) out[x] = v;
     carry = __shfl_sync(0xffffffffu, v, 31);
-  }
-}
-
-// Staged per slot in its kNgrad floats of s_d until the chain rule
-// overwrites them.
-enum { kCy, kCz, kS0, kS1, kS2, kCov, kW, kXh, kWin, kRow, kSa, kSb };
-
-// Per-row sums of a batch's slot cotangents as `row_sums` adds them
-// (slot order, the same float additions), each row scanning only the
-// slots from its first to its last (`s_first`, `s_last`).
-__device__ __forceinline__ void row_sums_ranged(const float* s_d, const int* s_row,
-                                                const int* s_first, const int* s_last,
-                                                int tbl, float* __restrict__ dtab_b) {
-  for (int r = threadIdx.x; r < tbl; r += blockDim.x) {
-    float sum[kNgrad];
-    for (int j = 0; j < kNgrad; ++j) sum[j] = 0.0f;
-    for (int s = s_first[r]; s <= s_last[r]; ++s) {
-      if (s_row[s] != r) continue;
-      for (int j = 0; j < kNgrad; ++j) sum[j] += s_d[s * kNgrad + j];
-    }
-    float* o = dtab_b + (long long)r * kNattr;
-    for (int j = 0; j < kNgrad; ++j) o[j] = sum[j];
-    for (int j = kNgrad; j < kNattr; ++j) o[j] = 0.0f;
   }
 }
 
@@ -583,7 +396,7 @@ extern "C" int vt_fused_fwd(const void* tables, const void* cells,
       slots, tb, tbl, num_tiles, g, (int4*)work);
   int e = (int)cudaGetLastError();
   if (e) return e;
-  const size_t smem = fused_fwd_smem(tc, tb);
+  const size_t smem = acc_smem_bytes(tc, tb);
   e = allow_smem(fused_accumulate_kernel, smem);
   if (e) return e;
   const int chunks = (n + kXC - 1) / kXC;

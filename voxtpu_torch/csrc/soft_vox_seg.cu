@@ -6,9 +6,9 @@
 //   B10  _seg_combine_kernel  (vt_seg_combine)
 //   B11  _seg_bwd_kernel      (vt_seg_bwd)
 //
-// The fused engine (soft_vox.cu, B7/B8) evaluates each slot's profile
+// The fused engine (soft_vox.cu, B7/B8) sums each slot's profile
 // w * sigmoid((xh - cx) / tau_x) over all n columns of its cell's row.
-// The seg engine evaluates it over one 128-column panel [p0, p0 + 128),
+// The seg engine sums it over one 128-column panel [p0, p0 + 128),
 // chosen on the host so that xh lies >= 32 columns inside it: left of
 // the panel the sigmoid is 1.0 in float32, so those columns get w as a
 // carry; right of it they get nothing. Tiles are square tz x ty YZ
@@ -16,16 +16,36 @@
 //   y = (t % (n / ty)) * ty + c % ty,  z = (t / (n / ty)) * tz + c / ty.
 // A (tile, panel) key's batches form one run of the plan.
 //
-// B9: one block per (run, 64-column half of the panel), 64 columns x 4
-// slot lanes, as B7 runs one block per (tile run, 64-column chunk): per
-// batch the block stages each slot's (cell, w, xh) in shared memory and
-// adds every term as a 64-bit fixed-point integer (soft_common.cuh), so
-// the sum is exact, order-free and deterministic. The half-0 block also
-// sums each cell's weights into the run's carry, also in fixed point.
-// Each run writes its own output block whole (family A, p0 % 128 == 0,
-// into out_a block p0 / 128; family B into out_b block (p0 - 64) / 128)
-// and its carry row, so no global atomics; unvisited blocks keep the
-// wrapper's zeros.
+// B9 and B11 compute a slot's sigmoid only inside its transition window
+// [a, b) (`slot_window` in soft_common.cuh, as B7/B8), clipped to the
+// slot's panel. Left of a the sigmoid is exactly 1.0f and from b on a
+// forward term rounds to 0 in the fixed point, so the clipped window
+// gives what the whole panel gives, also where the window lies partly
+// or wholly outside the panel (an x_hit that drifted since the plan was
+// built, or tau_x up to the guard's 32/17 voxels): a window right of
+// the panel makes every panel column saturated, one left of it none.
+// A slot whose w or xh is not finite, or |w| > 1, takes the whole panel
+// (B9), as does a slot with a non-finite xh or whose panel's cotangent
+// is not finite (B11), so that NaN and inf fall where the whole panel
+// puts them.
+//
+// B9: a record pass (`seg_window_kernel`, a thread a slot: local cell,
+// w, xh and the clipped window as an int4), then `seg_accumulate_kernel`,
+// one block per (run, 64-column half of the panel), B7's accumulation
+// (`accumulate_windows` in soft_common.cuh) over the half: each cell's saturated columns as a 64-bit base plus
+// per-column differences (w's integer __float2ll_rn(w * 2^40), the very
+// integer the whole panel adds there) and one scan; then per batch the
+// slots whose window meets the half, kGroup lanes a slot, each term a
+// 64-bit fixed-point add (soft_common.cuh). The half-0 block adds every
+// live slot's w to its cell's base, with the difference at the window's
+// start, so that the base before the scan is the run's carry (the sum
+// of w per cell, which B10 spreads left of the panel); a w outside
+// [-1, 1] marks the carry NaN instead. The integer sums are exact and
+// order-free, so out_a, out_b and the carry are bitwise those of the
+// whole panel. Each run writes its own output block whole (family A,
+// p0 % 128 == 0, into out_a block p0 / 128; family B into out_b block
+// (p0 - 64) / 128) and its carry row, so no global atomics; unvisited
+// blocks keep the wrapper's zeros.
 //
 // B10: one thread per voxel of the dense (z, y, x) grid:
 //   out = (A[j][l] + B') + pre[x / 64],  j = x / 128, l = x % 128,
@@ -34,20 +54,37 @@
 // to the plain version (adds only; the library is built with
 // -fmad=false).
 //
-// B11: B8's structure over the panel: one block per batch, one warp per
-// slot, lanes over the 128 panel columns of the cotangent read in
-// place in (z, y, x) layout; dw = sum(g * sig) + gpre (the sum of g left
-// of the panel), dxh = (w / tau_x) * sum(g * sig * (1 - sig)), the 13
-// chain-ruled cotangents summed per table row in slot order.
+// B11: B8's structure over the panel: one block per batch (one tile,
+// one panel); a thread a slot rebuilds its fragment and clipped window;
+// kGroup lanes a slot walk the panel's columns of the cotangent g, read
+// in place in (z, y, x) layout: g itself over [p0, a) (the in-panel
+// prefix: sig is 1.0f there and 1 - sig 0), four columns a load, then
+// g * sig and g * sig * (1 - sig) over the window [a, b); the terms from
+// b on are dropped (each below 2^-41 |g|). dw = sum + gpre (the sum of
+// g left of the panel, `seg_gpre`), dxh = (w / tau_x) * sum(g * sig *
+// (1 - sig)), the 13 chain-ruled cotangents summed per table row in
+// slot order (each row over its own slot range, the same additions).
+// The in-panel prefix, and not B8's float64 row prefix, because every
+// slot of a batch shares one panel: the columns left of the panel come
+// summed in gpre, the ~47 saturated panel columns a slot are plain adds
+// of aligned float4 loads, and no extra pass over the grid (0.59 ms and
+// 1 GiB for B8's prefix at 512^3) is needed. Whether a panel's
+// cotangent is finite is read from gpre through the panel's end (a
+// finite prefix sum has only finite terms), and for a row's last panel
+// from gpre and its last 64 columns.
 //
-// What bounds them on this card: B9 and B11 compute the sigmoid of every
-// (slot, panel column) pair, 128 per slot (~3.2e9 for 25M slots at
-// n = 512, against n per slot in B7/B8): three special-function
-// operations a pair (the division by tau_x, expf, the reciprocal). B9
-// also writes both family arrays whole (2 x 537 MB at n = 512) and B11
-// reads the panel columns of g (each cell's row by all of its slots,
-// from L1/L2). B10 moves bytes: reads A, B and the carry prefix, writes
-// the grid.
+// What bounds them on this card: the sigmoid of every (slot, column)
+// pair in the clipped window (~23 columns at tau_x of half a voxel),
+// three special-function operations a pair, with a 64-bit shared add
+// (two native 32-bit atomics) in B9 and a read of g in B11; B9's record
+// pass (16 bytes a slot, read four times: two halves, two passes) and
+// the zeroed family arrays (2 x 537 MB at n = 512, written by the
+// wrapper); B11's ~47 in-panel prefix columns a slot and its per-slot
+// rebuild and chain rule. B10 moves bytes: reads A, B and the carry
+// prefix, writes the grid.
+//
+// tests/test_torch_seg_emulated.py runs this file on the host through
+// tests/emulation.py (see soft_vox.cu's note on the rewritten lines).
 
 #include "soft_common.cuh"
 
@@ -55,10 +92,11 @@ namespace {
 
 constexpr int kPanel = 128;   // panel width
 constexpr int kLattice = 64;  // panel placement granularity
-constexpr int kHalf = 64;     // columns per B9 block
-constexpr int kLanes = 4;     // slot lanes per B9 block (kHalf x kLanes threads)
-constexpr int kBwdThreads = 256;
+constexpr int kHalf = kScanCols;  // columns per B9 accumulation block
+constexpr int kThreads = 256;     // B9's record pass, B11
+constexpr int kFwdThreads = 512;  // B9's accumulation: 16 warps at 3 blocks an SM
 constexpr int kCombineThreads = 256;
+static_assert(kPanel == 2 * kHalf, "a panel is two B9 halves");
 
 // The cell centre of local cell c of square tile `tile`.
 __device__ __forceinline__ void tile_cell(int tile, int c, const Geom& g, int* gy,
@@ -73,22 +111,48 @@ __device__ __forceinline__ bool panel_ok(int p0, int n) {
   return p0 >= 0 && p0 % kLattice == 0 && p0 + kPanel <= n;
 }
 
-// B9. Grid (runs, 2), kHalf * kLanes threads.
-__global__ void seg_fwd_kernel(const float* __restrict__ tables,
-                               const int* __restrict__ cells,
-                               const int* __restrict__ tblidx,
-                               const int* __restrict__ batch_tile,
-                               const int* __restrict__ batch_panel,
-                               const int* __restrict__ run_start, int tb, int tbl,
-                               int num_tiles, Geom g, float* __restrict__ out_a,
-                               float* __restrict__ out_b, float* __restrict__ carry) {
-  extern __shared__ unsigned long long acc[];   // [tc][kHalf] fixed point
-  unsigned long long* cacc = acc + g.tc * kHalf;  // [tc] carry, fixed point
-  float* s_w = (float*)(cacc + g.tc);           // [tb]
-  float* s_xh = s_w + tb;                       // [tb]
-  int* s_cell = (int*)(s_xh + tb);              // [tb]
-  unsigned* s_bad = (unsigned*)(s_cell + tb);   // [tc / 32][kHalf] cell bits
-  unsigned* s_cbad = s_bad + bad_words(g.tc) * kHalf;  // [tc / 32]
+// ---------------------------------------------------------------------
+// B9: a record pass, then the windowed accumulation per half panel.
+// ---------------------------------------------------------------------
+
+// One thread a slot: its record (`slot_record` over the panel).
+__global__ void seg_window_kernel(const float* __restrict__ tables,
+                                  const int* __restrict__ tblidx,
+                                  const int* __restrict__ cells,
+                                  const int* __restrict__ batch_tile,
+                                  const int* __restrict__ batch_panel,
+                                  long long num_slots, int tb, int tbl, int num_tiles,
+                                  Geom g, int4* __restrict__ rec) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= num_slots) return;
+  const int b = (int)(k / tb);
+  const int tile = batch_tile[b];
+  const int p0 = batch_panel[b];
+  const int c = cells[k];
+  const float* at = tile >= 0 && tile < num_tiles && panel_ok(p0, g.n) && c >= 0 && c < g.tc
+                        ? table_row(tables, tblidx, k, b, tbl)
+                        : nullptr;
+  int4 r = make_int4(-1, 0, 0, 0);
+  if (at) {
+    int gy, gz;
+    tile_cell(tile, c, g, &gy, &gz);
+    const Frag f = frag_at(at, center(g.oy, gy, g.vs), center(g.oz, gz, g.vs), g);
+    r = slot_record(c, f, p0, p0 + kPanel, g);
+  }
+  rec[k] = r;
+}
+
+// Grid (num_runs, 2), kFwdThreads threads: block (run, half) sums
+// columns [x0, x0 + kHalf) of the run's panel (`accumulate_windows`),
+// the half-0 block also the run's carry.
+__global__ void seg_accumulate_kernel(const int4* __restrict__ rec,
+                                      const int* __restrict__ batch_tile,
+                                      const int* __restrict__ batch_panel,
+                                      const int* __restrict__ run_start, int tb,
+                                      int num_tiles, Geom g, float* __restrict__ out_a,
+                                      float* __restrict__ out_b,
+                                      float* __restrict__ carry) {
+  extern __shared__ u64 smem_acc[];
   const int b0 = run_start[blockIdx.x];
   const int b1 = run_start[blockIdx.x + 1];
   if (b1 <= b0) return;
@@ -96,62 +160,28 @@ __global__ void seg_fwd_kernel(const float* __restrict__ tables,
   const int p0 = batch_panel[b0];
   // A run outside the output is skipped (uniform per block).
   if (tile < 0 || tile >= num_tiles || !panel_ok(p0, g.n)) return;
-  const int half = blockIdx.y;
-  const int col = threadIdx.x % kHalf;
-  const int lane = threadIdx.x / kHalf;
-  const float cx = center(g.ox, p0 + half * kHalf + col, g.vs);
-
-  for (int i = threadIdx.x; i < g.tc * kHalf; i += blockDim.x) acc[i] = 0ull;
-  for (int i = threadIdx.x; i < g.tc; i += blockDim.x) cacc[i] = 0ull;
-  for (int i = threadIdx.x; i < bad_words(g.tc) * (kHalf + 1); i += blockDim.x)
-    s_bad[i] = 0u;
-  for (int b = b0; b < b1; ++b) {
-    __syncthreads();  // the previous batch's staging is consumed
-    for (int s = threadIdx.x; s < tb; s += blockDim.x) {
-      const long long k = (long long)b * tb + s;
-      int c = cells[k];
-      float w = 0.0f, xh = 0.0f;
-      const float* at = (c >= 0 && c < g.tc) ? table_row(tables, tblidx, k, b, tbl)
-                                             : nullptr;
-      if (at) {
-        int gy, gz;
-        tile_cell(tile, c, g, &gy, &gz);
-        const Frag f = frag_at(at, center(g.oy, gy, g.vs), center(g.oz, gz, g.vs), g);
-        w = f.w;
-        xh = f.xh;
-        if (half == 0) fix_add(&cacc[c], &s_cbad[c >> 5], 1u << (c & 31), w);
-      } else {
-        c = -1;
-      }
-      s_cell[s] = c;
-      s_w[s] = w;
-      s_xh[s] = xh;
-    }
-    __syncthreads();
-    for (int s = lane; s < tb; s += kLanes) {
-      const int c = s_cell[s];
-      if (c < 0) continue;  // uniform per warp: its threads read one slot
-      const float v = s_w[s] * sigmoid((s_xh[s] - cx) / g.tau_x);
-      fix_add(&acc[c * kHalf + col], &s_bad[(c >> 5) * kHalf + col], 1u << (c & 31), v);
-    }
-  }
-  __syncthreads();
+  const bool carry_block = blockIdx.y == 0;
+  const int x0 = p0 + blockIdx.y * kHalf;
+  const AccSmem s = acc_smem(smem_acc, g.tc, tb);
+  accumulate_windows(s, rec, b0, b1, tb, x0, x0 + kHalf, carry_block, g);
   const bool fam_b = (p0 / kLattice) % 2 == 1;
   const int blk = fam_b ? (p0 - kLattice) / kPanel : p0 / kPanel;
-  const int nblk = g.n / kPanel;
-  float* o = (fam_b ? out_b : out_a) +
-             ((long long)tile * nblk + blk) * g.tc * kPanel + half * kHalf + col;
-  for (int c = lane; c < g.tc; c += kLanes)
-    o[(long long)c * kPanel] =
-        fix_value(acc[c * kHalf + col], (s_bad[(c >> 5) * kHalf + col] >> (c & 31)) & 1u);
-  if (half == 0) {
+  store_windows(s, g.tc, kHalf,
+                (fam_b ? out_b : out_a) +
+                    ((long long)tile * (g.n / kPanel) + blk) * g.tc * kPanel + (x0 - p0),
+                kPanel);
+  if (carry_block) {
     float* cr = carry + ((long long)tile * (g.n / kLattice) + p0 / kLattice) * g.tc;
     for (int c = threadIdx.x; c < g.tc; c += blockDim.x)
-      cr[c] = fix_value(cacc[c], (s_cbad[c >> 5] >> (c & 31)) & 1u);
+      cr[c] = fix_value(s.base[c], (s.cbad[c >> 5] >> (c & 31)) & 1u);
   }
 }
 
-// B10. One thread per voxel.
+// ---------------------------------------------------------------------
+// B10: the combine.
+// ---------------------------------------------------------------------
+
+// One thread per voxel.
 __global__ void seg_combine_kernel(const float* __restrict__ a,
                                    const float* __restrict__ b,
                                    const float* __restrict__ pre, int n, int tc,
@@ -177,69 +207,143 @@ __global__ void seg_combine_kernel(const float* __restrict__ a,
   out[i] = __fadd_rn(__fadd_rn(a[row * kPanel + l], bv), pv);
 }
 
-// B11. Grid (num_batches), kBwdThreads threads, one warp per slot at a
-// time.
-__global__ void seg_bwd_kernel(const float* __restrict__ tables,
-                               const int* __restrict__ cells,
-                               const int* __restrict__ tblidx,
-                               const int* __restrict__ batch_tile,
-                               const int* __restrict__ batch_panel,
-                               const float* __restrict__ gocc,
-                               const float* __restrict__ gpre, int tb, int tbl,
-                               int num_tiles, Geom g, float* __restrict__ dtab) {
+// ---------------------------------------------------------------------
+// B11: the windowed slot gradients over the panel.
+// ---------------------------------------------------------------------
+
+// Grid (num_batches), kThreads threads. The block marks each cell whose
+// panel cotangent is finite; a thread a slot rebuilds its fragment and
+// clipped window; kGroup lanes a slot sum the panel from p0 to b; a
+// thread a slot adds gpre and applies the chain rule.
+__global__ void seg_grad_kernel(const float* __restrict__ tables,
+                                const int* __restrict__ cells,
+                                const int* __restrict__ tblidx,
+                                const int* __restrict__ batch_tile,
+                                const int* __restrict__ batch_panel,
+                                const float* __restrict__ gocc,
+                                const float* __restrict__ gpre, int tb, int tbl,
+                                int num_tiles, Geom g, float* __restrict__ dtab) {
   extern __shared__ float smem[];
   float* s_d = smem;                       // [tb][kNgrad]
   int* s_row = (int*)(s_d + tb * kNgrad);  // [tb] table row, -1 = none
+  int* s_first = s_row + tb;               // [tbl]
+  int* s_last = s_first + tbl;             // [tbl]
+  int* s_fin = s_last + tbl;               // [tc] the cell's panel cotangent is finite
   const int b = blockIdx.x;
   const int tile = batch_tile[b];
   const int p0 = batch_panel[b];
   const bool batch_ok = tile >= 0 && tile < num_tiles && panel_ok(p0, g.n);
+  const int ng = g.n / kLattice;
+  const int j0 = p0 / kLattice;
   const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
+  const int glane = threadIdx.x % kGroup;
+  const int groups = blockDim.x / kGroup;
+  const bool geom_ok = window_geom(g);
 
-  for (int s = threadIdx.x >> 5; s < tb; s += nwarps) {
-    const long long k = (long long)b * tb + s;
-    const int c = cells[k];
-    const float* at = (batch_ok && c >= 0 && c < g.tc)
-                          ? table_row(tables, tblidx, k, b, tbl) : nullptr;
-    Frag f = {};
-    long long cell = 0;
-    float sa = 0.0f, sb = 0.0f;
-    if (at) {  // uniform per warp
+  for (int r = threadIdx.x; r < tbl; r += blockDim.x) {
+    s_first[r] = tb;
+    s_last[r] = -1;
+  }
+  if (batch_ok && j0 + 2 < ng) {
+    // gpre[j0 + 2] sums g over [0, p0 + 128): finite iff all its terms are
+    for (int c = threadIdx.x; c < g.tc; c += blockDim.x) {
       int gy, gz;
       tile_cell(tile, c, g, &gy, &gz);
-      f = frag_at(at, center(g.oy, gy, g.vs), center(g.oz, gz, g.vs), g);
-      cell = (long long)gz * g.n + gy;
-      const float* grow = gocc + cell * g.n;
-      for (int x = p0 + lane; x < p0 + kPanel; x += 32) {
-        const float sig = sigmoid((f.xh - center(g.ox, x, g.vs)) / g.tau_x);
+      s_fin[c] = isfinite(gpre[((long long)gz * g.n + gy) * ng + j0 + 2]);
+    }
+  } else if (batch_ok) {  // the row's last panel: gpre through p0 + 64, then its columns
+    for (int c = threadIdx.x >> 5; c < g.tc; c += blockDim.x >> 5) {
+      int gy, gz;
+      tile_cell(tile, c, g, &gy, &gz);
+      const long long cell = (long long)gz * g.n + gy;
+      bool bad = !isfinite(gpre[cell * ng + ng - 1]);
+      for (int x = p0 + kLattice + lane; x < g.n; x += 32) bad |= !isfinite(gocc[cell * g.n + x]);
+      bad = __any_sync(0xffffffffu, bad);
+      if (lane == 0) s_fin[c] = !bad;
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < tb; s += blockDim.x) {
+    const long long k = (long long)b * tb + s;
+    const int c = cells[k];
+    const float* at = batch_ok && c >= 0 && c < g.tc ? table_row(tables, tblidx, k, b, tbl)
+                                                     : nullptr;
+    s_row[s] = at ? tblidx[k] : -1;
+    if (!at) continue;
+    atomicMin(&s_first[s_row[s]], s);
+    atomicMax(&s_last[s_row[s]], s);
+    int gy, gz;
+    tile_cell(tile, c, g, &gy, &gz);
+    const Frag f = frag_at(at, center(g.oy, gy, g.vs), center(g.oz, gz, g.vs), g);
+    Window win = {p0, p0 + kPanel};
+    if (isfinite(f.xh) && geom_ok && s_fin[c]) win = clipped_window(f.xh, p0, p0 + kPanel, g);
+    float* d = s_d + s * kNgrad;
+    d[kCy] = f.cy;
+    d[kCz] = f.cz;
+    d[kS0] = f.s0;
+    d[kS1] = f.s1;
+    d[kS2] = f.s2;
+    d[kCov] = f.cov;
+    d[kW] = f.w;
+    d[kXh] = f.xh;
+    d[kWin] = __int_as_float(win.a | (win.b << 16));
+    d[kRow] = __int_as_float(gz * g.n + gy);
+  }
+  __syncthreads();
+  for (int s0 = 0; s0 < tb; s0 += groups) {  // one trip count for every lane
+    const int s = s0 + threadIdx.x / kGroup;
+    const bool live = s < tb && s_row[s] >= 0;
+    float* d = s_d + (live ? s : 0) * kNgrad;
+    float sa = 0.0f, sb = 0.0f;
+    if (live) {
+      const float xh = d[kXh];
+      const int win = __float_as_int(d[kWin]);
+      const int a = win & 0xffff;
+      const float* grow = gocc + (long long)__float_as_int(d[kRow]) * g.n;
+      // The in-panel prefix [p0, a), four columns a load (p0 % 64 == 0
+      // and n % 128 == 0: the float4s are aligned).
+      const float4* g4 = (const float4*)(grow + p0);
+      for (int q = glane; 4 * q < a - p0; q += kGroup) {
+        const float4 v = g4[q];
+        const int left = a - p0 - 4 * q;  // columns of this float4 left of a
+        sa += v.x;
+        if (left > 1) sa += v.y;
+        if (left > 2) sa += v.z;
+        if (left > 3) sa += v.w;
+      }
+      for (int x = a + glane; x < (win >> 16); x += kGroup) {
+        const float sig = sigmoid(profile_arg(xh, x, g));
         const float ps = grow[x] * sig;
         sa += ps;
         sb += ps * (1.0f - sig);
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = kGroup / 2; off > 0; off >>= 1) {
       sa += __shfl_xor_sync(0xffffffffu, sa, off);
       sb += __shfl_xor_sync(0xffffffffu, sb, off);
     }
-    if (lane != 0) continue;
-    if (!at) {
-      s_row[s] = -1;
-      continue;
+    __syncwarp();  // every lane has read d before its group's first lane writes it
+    if (live && glane == 0) {
+      d[kSa] = sa;
+      d[kSb] = sb;
     }
-    const float dw = sa + gpre[cell * (g.n / kLattice) + p0 / kLattice];
-    const float dxh = (f.w / g.tau_x) * sb;
-    chain_rule(s_d + s * kNgrad, at, f, dw, dxh, g);
-    s_row[s] = tblidx[k];
   }
   __syncthreads();
-  row_sums(s_d, s_row, tb, tbl, dtab + (long long)b * tbl * kNattr);
+  for (int s = threadIdx.x; s < tb; s += blockDim.x) {
+    if (s_row[s] < 0) continue;
+    float* d = s_d + s * kNgrad;
+    const Frag f = {d[kCy], d[kCz], d[kS0], d[kS1], d[kS2], d[kCov], d[kW], d[kXh]};
+    const long long cell = __float_as_int(d[kRow]);
+    const float dw = d[kSa] + gpre[cell * ng + j0];
+    const float dxh = (f.w / g.tau_x) * d[kSb];
+    chain_rule(d, tables + ((long long)b * tbl + s_row[s]) * kNattr, f, dw, dxh, g);
+  }
+  __syncthreads();
+  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab + (long long)b * tbl * kNattr);
 }
 
-size_t seg_fwd_smem(int tc, int tb) {
-  return (size_t)tc * (kHalf + 1) * sizeof(unsigned long long) +
-         3 * (size_t)tb * sizeof(float) +
-         (size_t)bad_words(tc) * (kHalf + 1) * sizeof(unsigned);
+size_t seg_bwd_smem(int tc, int tb, int tbl) {
+  return (size_t)tb * (kNgrad + 1) * sizeof(float) + (2 * (size_t)tbl + tc) * sizeof(int);
 }
 
 int set_smem(const void* kernel, size_t smem) {
@@ -252,22 +356,30 @@ int set_smem(const void* kernel, size_t smem) {
 
 // B9: (B, tbl, 16) tables -> out_a, out_b (num_tiles, n / 128, tc, 128)
 // and carry (num_tiles, n / 64, tc) floats, zeroed; only the blocks of
-// the runs are written.
+// the runs are written. `work` holds B * tb int4 slot records.
 extern "C" int vt_seg_fwd(const void* tables, const void* cells, const void* tblidx,
                           const void* batch_tile, const void* batch_panel,
-                          const void* run_start, int num_runs, int tb, int tbl,
-                          int n, int tc, int tz, int num_tiles, float ox, float oy,
-                          float oz, float vs, float tau_e, float tau_x, void* out_a,
-                          void* out_b, void* carry, void* stream) {
+                          const void* run_start, int num_batches, int num_runs, int tb,
+                          int tbl, int n, int tc, int tz, int num_tiles, float ox,
+                          float oy, float oz, float vs, float tau_e, float tau_x,
+                          void* work, void* out_a, void* out_b, void* carry,
+                          void* stream) {
   const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc, tz};
-  const size_t smem = seg_fwd_smem(tc, tb);
-  const int e = set_smem((const void*)seg_fwd_kernel, smem);
-  if (e != 0) return e;
+  if (n >= (1 << 15)) return (int)cudaErrorInvalidValue;  // a | b << 16 in an int
+  const long long slots = (long long)num_batches * tb;
+  const cudaStream_t st = (cudaStream_t)stream;
+  seg_window_kernel<<<(unsigned)((slots + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      (const float*)tables, (const int*)tblidx, (const int*)cells, (const int*)batch_tile,
+      (const int*)batch_panel, slots, tb, tbl, num_tiles, g, (int4*)work);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t smem = acc_smem_bytes(tc, tb);
+  e = set_smem((const void*)seg_accumulate_kernel, smem);
+  if (e) return e;
   const dim3 grid(num_runs, kPanel / kHalf);
-  seg_fwd_kernel<<<grid, kHalf * kLanes, smem, (cudaStream_t)stream>>>(
-      (const float*)tables, (const int*)cells, (const int*)tblidx,
-      (const int*)batch_tile, (const int*)batch_panel, (const int*)run_start, tb,
-      tbl, num_tiles, g, (float*)out_a, (float*)out_b, (float*)carry);
+  seg_accumulate_kernel<<<grid, kFwdThreads, smem, st>>>(
+      (const int4*)work, (const int*)batch_tile, (const int*)batch_panel,
+      (const int*)run_start, tb, num_tiles, g, (float*)out_a, (float*)out_b, (float*)carry);
   return (int)cudaGetLastError();
 }
 
@@ -291,10 +403,11 @@ extern "C" int vt_seg_bwd(const void* tables, const void* cells, const void* tbl
                           float ox, float oy, float oz, float vs, float tau_e,
                           float tau_x, void* dtab, void* stream) {
   const Geom g = {ox, oy, oz, vs, tau_e, tau_x, n, tc, tz};
-  const size_t smem = (size_t)tb * (kNgrad + 1) * sizeof(float);
-  const int e = set_smem((const void*)seg_bwd_kernel, smem);
+  if (n >= (1 << 15)) return (int)cudaErrorInvalidValue;
+  const size_t smem = seg_bwd_smem(tc, tb, tbl);
+  const int e = set_smem((const void*)seg_grad_kernel, smem);
   if (e != 0) return e;
-  seg_bwd_kernel<<<num_batches, kBwdThreads, smem, (cudaStream_t)stream>>>(
+  seg_grad_kernel<<<num_batches, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)tables, (const int*)cells, (const int*)tblidx,
       (const int*)batch_tile, (const int*)batch_panel, (const float*)g_occ,
       (const float*)gpre, tb, tbl, num_tiles, g, (float*)dtab);

@@ -214,10 +214,11 @@ def fwd_smem_bytes(tc: int, tb: int) -> int:
 
 
 def fused_fwd_smem_bytes(tc: int, tb: int) -> int:
-    """B7 shared memory: B13 fwd's accumulator and bits, a 16-byte work
-    item per slot instead of the three staged values, a 64-bit base per
-    cell and two counters."""
-    return fwd_smem_bytes(tc, tb) + tb * 4 + tc * 8 + 8
+    """B7 and B9 shared memory (`csrc/soft_common.cuh::acc_smem_bytes`):
+    B13 fwd's accumulator and bits, a 16-byte work item per slot instead
+    of the three staged values, a 64-bit base and a carry bit per cell
+    and two counters."""
+    return fwd_smem_bytes(tc, tb) + tb * 4 + tc * 8 + (tc + 31) // 32 * 4 + 8
 
 
 def _check_fwd_smem(tc: int, tb: int) -> None:

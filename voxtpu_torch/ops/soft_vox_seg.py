@@ -48,10 +48,10 @@ import torch
 from voxtpu_torch import _build
 from voxtpu_torch.ops.soft_vox import CHUNK_ELEMS, clip01
 from voxtpu_torch.ops.soft_vox_fused import (_SMEM_MAX, TablePlan, _check_fused,
-                                             _cut_batches, chain_rule, fwd_smem_bytes,
-                                             slot_cells, slot_fragment, slot_rows,
-                                             table_add, table_grid, tables_of,
-                                             tile_runs)
+                                             _cut_batches, chain_rule,
+                                             fused_fwd_smem_bytes, slot_cells,
+                                             slot_fragment, slot_rows, table_add,
+                                             table_grid, tables_of, tile_runs)
 from voxtpu_torch.ops.vox_cuda import _check_range
 
 PANEL = 128          # sigmoid panel width (columns)
@@ -161,19 +161,14 @@ def _check_seg(tables, cells_b, tblidx_b, batch_tile, batch_panel):
     _build.expect(batch_panel, "batch_panel", torch.int32, (tables.shape[0],))
 
 
-def seg_fwd_smem_bytes(tc: int, tb: int) -> int:
-    """B9's shared memory: B7's, plus the carry's fixed-point sums and
-    their non-finite bits."""
-    return fwd_smem_bytes(tc, tb) + tc * 8 + (tc + 31) // 32 * 4
-
-
 def seg_fwd(tables, cells_b, tblidx_b, batch_tile, batch_panel, run_start, *,
             n: int, tc: int, tz: int, prm):
     """B9: (B, tbl, 16) tables -> (out_a, out_b, carry) as
     `seg_fwd_plain`. Batches of one (tile, panel) key must form one
     contiguous run; `run_start` (R + 1,) int32 holds the runs' bounds
     (the plan's `run_start_d`). A CPU tensor takes the plain version, a
-    CUDA tensor launches the kernel (`csrc/soft_vox_seg.cu::vt_seg_fwd`)."""
+    CUDA tensor launches the kernel (`csrc/soft_vox_seg.cu::vt_seg_fwd`:
+    a record pass, then the windowed accumulation)."""
     _check_geometry(n, tc, tz)
     _check_seg(tables, cells_b, tblidx_b, batch_tile, batch_panel)
     if not _build.on_cuda(tables, cells_b, tblidx_b, batch_tile, batch_panel,
@@ -182,7 +177,7 @@ def seg_fwd(tables, cells_b, tblidx_b, batch_tile, batch_panel, run_start, *,
                              n=n, tc=tc, tz=tz, prm=prm)
     _build.expect(run_start, "run_start", torch.int32)
     tb = cells_b[0].numel()
-    if seg_fwd_smem_bytes(tc, tb) > _SMEM_MAX:
+    if fused_fwd_smem_bytes(tc, tb) > _SMEM_MAX:
         raise ValueError(f"tc={tc}, tb={tb} exceed one block's shared memory")
     nt = (n * n) // tc
     out_a = torch.zeros((nt, n // PANEL, tc, PANEL), dtype=torch.float32,
@@ -192,11 +187,14 @@ def seg_fwd(tables, cells_b, tblidx_b, batch_tile, batch_panel, run_start, *,
                         device=tables.device)
     num_runs = run_start.numel() - 1
     if num_runs > 0:
+        # one int4 record per slot: local cell, w, x_hit, clipped window
+        work = torch.empty((cells_b.numel(), 4), dtype=torch.int32, device=out_a.device)
         _build.launch("vt_seg_fwd", tables.data_ptr(), cells_b.data_ptr(),
                       tblidx_b.data_ptr(), batch_tile.data_ptr(),
-                      batch_panel.data_ptr(), run_start.data_ptr(), num_runs, tb,
-                      tables.shape[1], n, tc, tz, nt, *prm, out_a.data_ptr(),
-                      out_b.data_ptr(), carry.data_ptr(), _build.stream_of(out_a))
+                      batch_panel.data_ptr(), run_start.data_ptr(), tables.shape[0],
+                      num_runs, tb, tables.shape[1], n, tc, tz, nt, *prm,
+                      work.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
+                      carry.data_ptr(), _build.stream_of(out_a))
         seg_fwd.launches += 1
     return out_a, out_b, carry
 
@@ -300,6 +298,9 @@ def seg_bwd(tables, cells_b, tblidx_b, batch_tile, batch_panel, g, gpre, *,
     _check_geometry(n, tc, tz)
     _check_seg(tables, cells_b, tblidx_b, batch_tile, batch_panel)
     _build.expect(g, "g", torch.float32, (n, n, n))
+    if g.data_ptr() % 16:
+        raise ValueError("g: expected a 16-byte aligned start (the kernel reads four "
+                         "columns a load)")
     _build.expect(gpre, "gpre", torch.float32, (n, n, n // LATTICE))
     if not _build.on_cuda(tables, cells_b, tblidx_b, batch_tile, batch_panel, g,
                           gpre):
@@ -338,6 +339,8 @@ class _SegAccumulate(torch.autograd.Function):
         (tables,) = ctx.saved_tensors
         plan = ctx.plan
         g = g.contiguous()
+        if g.data_ptr() % 16:  # a view into a larger buffer
+            g = g.clone()
         dtab = seg_bwd(tables, plan.cells_d, plan.tblidx_d, plan.batch_tile_d,
                        plan.batch_panel_d, g, seg_gpre(g), n=plan.spec.n,
                        tc=plan.tc, tz=plan.tz, prm=ctx.prm)
