@@ -98,8 +98,9 @@ and no result line:
    for the final loss), its first loss the fused engine's within 1e-4
    relative, its warm step printed beside the fused one. Then
    `VoxelFit(engine="cuda")` takes 2 steps from the same start on the
-   same plan: B13 fwd / bwd are held and timed as B7 / B8 were, and its
-   first loss must equal the fused engine's within 1e-4 relative. The
+   same plan, each printed with its wall time and peak device memory:
+   B13 fwd / bwd are held and timed as B7 / B8 were, and its first loss
+   must equal the fused engine's within 1e-4 relative. The
    kernel table's launches are phase 4's for B1-B5 and this phase's for
    B7-B11 and B13 (phase 4b's for B4 and B12).
 7. `python -m voxtpu_torch.examples.fit_vertices --n 64 --steps 10
@@ -1018,14 +1019,16 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
               f"{timings[key][1]:.3f} ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
     closs = []
     for i in range(CUDA_STEPS):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         cstate, m = cfit.step(cstate)
         torch.cuda.synchronize()
         closs.append(float(m["loss"]))
         require(np.isfinite(closs[-1]), f"cuda engine step {i + 1}: non-finite loss")
         print(f"cuda engine step {i + 1}: loss {closs[-1]:.6f}, wall "
-              f"{time.perf_counter() - t0:.3f} s; launches B13 fwd {B13F.launches} "
-              f"bwd {B13B.launches}")
+              f"{time.perf_counter() - t0:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches B13 fwd "
+              f"{B13F.launches} bwd {B13B.launches}")
     require(abs(closs[0] - losses[0]) <= 1e-4 * losses[0],
             f"the cuda engine's first loss {closs[0]:.6f} differs from the fused "
             f"engine's {losses[0]:.6f}")

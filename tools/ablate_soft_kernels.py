@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the windowed soft kernels (B7, B8, B9, B11) goes, on one CUDA card.
+"""Where the time of the windowed soft kernels (B7, B8, B9, B11, B13) goes, on one CUDA card.
 
     python3 tools/ablate_soft_kernels.py [--n N]   # from the repository root, default 512
 
@@ -10,23 +10,29 @@ written beside it; the tool fails if a substitution no longer applies),
 then times the C entry points of each: `vt_fused_fwd` (B7)
 and `vt_fused_bwd` (B8) on step 1 of phase 6's fused fit in
 `chip_smoke.py` (the 1,348,128-face rotated torus at N^3; the loss
-cotangent for B8), `vt_seg_fwd` (B9) and `vt_seg_bwd` (B11) on step 1
-of its seg fit from the same start; buffers allocated once (so B9's
-times leave out the wrapper's zeroed family arrays). CUDA events, one
-warm-up, median of 5.
+cotangent for B8), `vt_fragment_fwd` and `vt_fragment_bwd` (B13) on
+step 1 of its cuda-engine fit from the same start, `vt_seg_fwd` (B9)
+and `vt_seg_bwd` (B11) on step 1 of its seg fit; buffers allocated once
+(so B9's times leave out the wrapper's zeroed family arrays). CUDA
+events, one warm-up, median of 5. B7 and B13 fwd share one
+accumulation, and B8 and B13 bwd one window sum, so a variant of those
+parts changes both kernels.
 
   as_is           the kernels as they are
-  b7_cas          B7's 64-bit shared adds as atomicAdd on the 64-bit word
-                  (a compare-and-swap loop on sm_90a) instead of two
-                  32-bit adds with a carry (exact)
-  b7_no_carry     B7 without its saturated columns (not exact: timing)
-  b7_no_windows   B7 without its window columns (not exact: timing)
-  b7_records      B7's record pass alone (timing)
+  b7_cas          the accumulation's 64-bit shared adds (B7, B13 fwd) as
+                  atomicAdd on the 64-bit word (a compare-and-swap loop
+                  on sm_90a) instead of two 32-bit adds with a carry
+                  (exact)
+  b7_no_carry     B7 and B13 fwd without their saturated columns (not
+                  exact: timing)
+  b7_no_windows   B7 and B13 fwd without their window columns (timing)
+  b7_records      B7's and B13 fwd's record passes alone (timing)
   b8_row_sums     B8 summing table rows with `row_sums`, every row over
                   every slot of its batch (exact)
   b8_no_rows      B8 without its table-row sums (not exact: timing)
-  b8_no_windows   B8 without its window columns (not exact: timing)
+  b8_no_windows   B8 and B13 bwd without their window columns (timing)
   b8_prefix       B8's row prefix pass alone (timing)
+  b13_prefix      B13 bwd's row prefix pass alone (timing)
   seg_as_is       B9 and B11 as they are
   b9_records      B9's record pass alone (timing)
   b9_no_carry     B9 without its saturated columns and carry (not exact)
@@ -39,8 +45,8 @@ warm-up, median of 5.
 Prints the card's name and power limit, each variant's ptxas lines for
 the soft kernels, and per variant the times of its two kernels. Exits
 non-zero if a build fails or an exact variant differs from the wrapper's
-result (`as_is`, `b7_cas`, `b8_row_sums` against the fused wrappers,
-`seg_as_is` against the seg ones).
+result (`as_is`, `b7_cas`, `b8_row_sums` against the fused and per-fragment
+wrappers, `seg_as_is` against the seg ones).
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import TAU, bitwise_equal, card_line, cuda_ms, loss_cotangent  # noqa: E402
 from tools.check_fused_window import torus_fit  # noqa: E402
 from voxtpu_torch import _build  # noqa: E402
+from voxtpu_torch.ops import soft_vox, soft_vox_cuda as C  # noqa: E402
 from voxtpu_torch.ops import soft_vox_fused as F  # noqa: E402
 from voxtpu_torch.ops import soft_vox_seg as S  # noqa: E402
 
@@ -76,16 +83,20 @@ FUSED_VARIANTS = {
     "b7_no_carry": [("    if (r.x < 0) continue;", "    if (r.x < 0 || g.n > 0) continue;")],
     "b7_no_windows": [("for (int i = threadIdx.x / kGroup; i < count;",
                        f"for (int i = threadIdx.x / kGroup; {SKIP}i < count;")],
-    "b7_records": [("  const size_t smem = acc_smem_bytes(tc, tb);",
-                    "  if (n > 0) return 0;\n  const size_t smem = acc_smem_bytes(tc, tb);")],
+    "b7_records": [("  const size_t smem = acc_smem_bytes(g.tc, tb);",
+                    "  if (g.n > 0) return 0;\n"
+                    "  const size_t smem = acc_smem_bytes(g.tc, tb);")],
     "b8_row_sums": [("  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab",
                      "  row_sums(s_d, s_row, tb, tbl, dtab")],
     "b8_no_rows": [("  row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab",
                     "  if (g.n < 0) row_sums_ranged(s_d, s_row, s_first, s_last, tbl, dtab")],
-    "b8_no_windows": [("for (int x = (win & 0xffff) + glane; x < (win >> 16);",
-                       f"for (int x = (win & 0xffff) + glane; {SKIP}x < (win >> 16);")],
+    "b8_no_windows": [("for (int x = a + (int)(threadIdx.x % kGroup); x < b;",
+                       f"for (int x = a + (int)(threadIdx.x % kGroup); {SKIP}x < b;")],
     "b8_prefix": [("  const size_t smem = (size_t)tb * (kNgrad + 1)",
                    "  if (n > 0) return 0;\n  const size_t smem = (size_t)tb * (kNgrad + 1)")],
+    "b13_prefix": [("  const unsigned blocks = (unsigned)((slots + kThreads",
+                    "  if (n > 0) return 0;\n"
+                    "  const unsigned blocks = (unsigned)((slots + kThreads")],
 }
 SEG_VARIANTS = {
     "seg_as_is": [],
@@ -106,7 +117,8 @@ SEG_VARIANTS = {
 # variant -> (source file, substitutions)
 VARIANTS = {**{k: (FUSED, v) for k, v in FUSED_VARIANTS.items()},
             **{k: (SEG, v) for k, v in SEG_VARIANTS.items()}}
-ENTRIES = {FUSED: ("vt_fused_fwd", "vt_fused_bwd"), SEG: ("vt_seg_fwd", "vt_seg_bwd")}
+ENTRIES = {FUSED: ("vt_fused_fwd", "vt_fused_bwd", "vt_fragment_fwd", "vt_fragment_bwd"),
+           SEG: ("vt_seg_fwd", "vt_seg_bwd")}
 
 
 def variant_sources(name: str) -> dict:
@@ -145,8 +157,9 @@ def build_all(out_dir: str) -> dict:
             raise SystemExit(f"{name}: nvcc failed\n{log[-4000:]}")
         kernel = None
         for line in log.splitlines():
-            found = re.search(r"Compiling entry function '\w*?((?:fused|row|seg)_\w+?_kernel)",
-                              line)
+            found = re.search(
+                r"Compiling entry function '\w*?((?:fused|fragment|window|row|seg)_\w+?_kernel)",
+                line)
             if found:
                 kernel = found.group(1)
             elif kernel and "Used" in line:
@@ -203,6 +216,60 @@ def time_fused(libs: dict, n: int) -> bool:
             print(f"{name}: B7 and B8 bitwise the wrappers': {same}")
         print(f"{name}: B7 {cuda_ms(b7):.4f} ms, B8 {cuda_ms(b8):.4f} ms", flush=True)
     del fit, state, target, fp, tables, occ_ref, g, dtab_ref, work, pre
+    torch.cuda.empty_cache()
+    return ok
+
+
+def time_fragment(libs: dict, n: int) -> bool:
+    """B13 fwd and bwd of each soft_vox.cu variant on the cuda-engine
+    fit's step 1."""
+    fit, state, target = torus_fit(n, "cuda")
+    cp = fit.engine_plan
+    n, tc, tb = cp.spec.n, cp.tc, cp.cells_d[0].numel()
+    vs, _, tau_x = soft_vox.temperatures(cp.spec, *TAU)
+    prm = (soft_vox.f32(cp.spec.origin[0]), vs, tau_x)
+    with torch.no_grad():
+        _, w, x = soft_vox.soft_fragments(state.coords, cp.soft_plan, tau_edge_frac=TAU[0],
+                                          tau_x_frac=TAU[1])
+        wb, xb = C._Permute.apply(w, x, cp)
+    del w, x
+    args = (wb, xb, cp.cells_d, cp.batch_tile_d)
+    kw = dict(n=n, tc=tc, prm=prm)
+    occ_ref = C.fragment_fwd(*args, cp.run_start_d, **kw)
+    g = loss_cotangent(occ_ref, target)
+    grads_ref = C.fragment_bwd(*args, g, **kw)
+    ptrs = tuple(t.data_ptr() for t in args)
+    work = torch.empty((cp.cells_d.numel(), 4), dtype=torch.int32, device=g.device)
+    pre = torch.empty((n * n, n), dtype=torch.float64, device=g.device)
+    stream = _build.stream_of(g)
+    ok = True
+    for name, lib in libs.items():
+        out = torch.zeros_like(occ_ref)
+        dw, dx = torch.zeros_like(wb), torch.zeros_like(xb)
+
+        def fwd():
+            err = lib.vt_fragment_fwd(*ptrs, cp.run_start_d.data_ptr(), cp.num_batches,
+                                      cp.run_start_d.numel() - 1, tb, n, tc, n * n // tc,
+                                      *prm, work.data_ptr(), out.data_ptr(), stream)
+            assert err == 0, f"{name} B13 fwd: CUDA error {err}"
+
+        def bwd():
+            err = lib.vt_fragment_bwd(*ptrs, g.data_ptr(), cp.num_batches, tb, n, tc,
+                                      n * n // tc, *prm, pre.data_ptr(), dw.data_ptr(),
+                                      dx.data_ptr(), stream)
+            assert err == 0, f"{name} B13 bwd: CUDA error {err}"
+
+        fwd()
+        bwd()
+        torch.cuda.synchronize()
+        if name in EXACT:
+            same = (bitwise_equal(out, occ_ref) and bitwise_equal(dw, grads_ref[0])
+                    and bitwise_equal(dx, grads_ref[1]))
+            ok &= same
+            print(f"{name}: B13 fwd and bwd bitwise the wrappers': {same}")
+        print(f"{name}: B13 fwd {cuda_ms(fwd):.4f} ms, B13 bwd {cuda_ms(bwd):.4f} ms",
+              flush=True)
+    del fit, state, target, cp, args, wb, xb, occ_ref, g, grads_ref, work, pre
     torch.cuda.empty_cache()
     return ok
 
@@ -264,7 +331,9 @@ def main() -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         libs = build_all(tmp)
-        ok = time_fused({k: v for k, v in libs.items() if VARIANTS[k][0] == FUSED}, args.n)
+        fused = {k: v for k, v in libs.items() if VARIANTS[k][0] == FUSED}
+        ok = time_fused(fused, args.n)
+        ok &= time_fragment(fused, args.n)
         ok &= time_seg({k: v for k, v in libs.items() if VARIANTS[k][0] == SEG}, args.n)
     return 0 if ok else 1
 

@@ -13,12 +13,15 @@ refreshed one, at the coordinates of the moment:
 
 - B7 against `fused_fwd_plain` (limit 1e-4) and B8 against
   `fused_bwd_plain` (limit 1e-3 x max|plain|) for the loss cotangent;
-- with `--parent DIR` (a tree whose `voxtpu_torch/csrc/soft_vox.cu`
-  still has the full-row B7 and B8 and their C signatures, built here
-  with nvcc into `voxtpu_torch/csrc/build/`): B7 bitwise against that
-  tree's B7, both trees' errors against the plain versions, and both
-  trees' B7 and B8 timed in turns (parent, change, change, parent; CUDA
-  events, median of 5 each);
+- with `--parent DIR` (an earlier tree, its `voxtpu_torch/csrc/soft_vox.cu`
+  built here with nvcc into `voxtpu_torch/csrc/build/` and its entries
+  bound with the C signatures of its own `voxtpu_torch/_build.py`: the
+  full-row B7 and B8 from before the transition windows, or windowed
+  ones that take a work or prefix buffer): B7 bitwise against that
+  tree's B7, both trees' errors against the plain versions, whether B8
+  is bitwise that tree's (printed: the full-row B8 sums in another
+  order), and both trees' B7 and B8 timed in turns (parent, change,
+  change, parent; CUDA events, median of 5 each);
 - the live slots and the mean window width in columns.
 
 Between the plans, each step's loss, wall time and peak device memory.
@@ -30,6 +33,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -52,18 +56,34 @@ from voxtpu_torch.ops import soft_vox_fused as F  # noqa: E402
 from voxtpu_torch.ops.soft_vox import make_soft_plan  # noqa: E402
 from voxtpu_torch.ops.vox import voxelize  # noqa: E402
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The full-row kernels' C signatures (no work or prefix buffer).
-PARENT_SIGNATURES = {
-    "vt_fused_fwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P, _P],
-    "vt_fused_bwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P, _P],
-}
+
+
+def parent_signatures(tree: str, entries) -> dict:
+    """The C signatures of `entries` as `tree`'s own
+    `voxtpu_torch/_build.py` declares them (loaded by path, so that this
+    tree's package is not replaced)."""
+    path = os.path.join(tree, "voxtpu_torch", "_build.py")
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclass looks its module up
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        del sys.modules[spec.name]
+    return {name: module.SIGNATURES[name] for name in entries}
+
+
+def windowed(lib, entry: str) -> bool:
+    """Whether `lib`'s `entry` takes this tree's C signature (an earlier
+    form takes fewer arguments: no work or prefix buffer)."""
+    return len(getattr(lib, entry).argtypes) == len(_build.SIGNATURES[entry])
 
 
 def parent_library(tree: str, source: str = "soft_vox.cu",
-                   signatures: dict = PARENT_SIGNATURES) -> ctypes.CDLL:
+                   entries=("vt_fused_fwd", "vt_fused_bwd")) -> ctypes.CDLL:
     """`tree`'s csrc `source` (with the headers beside it), built alone
-    with this tree's nvcc flags, its entries bound as `signatures` says."""
+    with this tree's nvcc flags, its `entries` bound with `tree`'s own C
+    signatures."""
     csrc = os.path.join(tree, "voxtpu_torch", "csrc")
     src = os.path.join(csrc, source)
     h = hashlib.sha256()
@@ -80,7 +100,7 @@ def parent_library(tree: str, source: str = "soft_vox.cu",
             raise RuntimeError(f"nvcc failed on {src}:\n{done.stderr[-4000:]}")
         print(f"parent {source} built in {time.perf_counter() - t0:.1f} s")
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in signatures.items():
+    for name, argtypes in parent_signatures(tree, entries).items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -88,9 +108,14 @@ def parent_library(tree: str, source: str = "soft_vox.cu",
 
 def parent_calls(lib, fp, tables, prm):
     """The parent tree's B7 (tables -> occupancy) and B8 ((tables, g)
-    -> table cotangents) on plan `fp`."""
+    -> table cotangents) on plan `fp`, in either C form: full-row (no
+    buffers) or windowed (B7 also takes the batch count and a work
+    buffer, B8 a prefix buffer)."""
     n, tc = fp.spec.n, fp.tc
     tb = fp.cells_d[0].numel()
+    ptrs = (tables.data_ptr(), fp.cells_d.data_ptr(), fp.tblidx_d.data_ptr(),
+            fp.batch_tile_d.data_ptr())
+    fwd_windowed, bwd_windowed = (windowed(lib, e) for e in ("vt_fused_fwd", "vt_fused_bwd"))
 
     def check(err):
         if err:
@@ -98,19 +123,22 @@ def parent_calls(lib, fp, tables, prm):
 
     def fwd():
         out = torch.zeros((n, n, n), dtype=torch.float32, device=tables.device)
-        check(lib.vt_fused_fwd(tables.data_ptr(), fp.cells_d.data_ptr(),
-                               fp.tblidx_d.data_ptr(), fp.batch_tile_d.data_ptr(),
-                               fp.run_start_d.data_ptr(), fp.run_start_d.numel() - 1, tb,
-                               tables.shape[1], n, tc, n * n // tc, *prm, out.data_ptr(),
+        runs = (fp.run_start_d.data_ptr(),
+                *((tables.shape[0],) if fwd_windowed else ()), fp.run_start_d.numel() - 1)
+        work = (torch.empty((fp.cells_d.numel(), 4), dtype=torch.int32, device=out.device),
+                ) if fwd_windowed else ()
+        check(lib.vt_fused_fwd(*ptrs, *runs, tb, tables.shape[1], n, tc, n * n // tc, *prm,
+                               *(w.data_ptr() for w in work), out.data_ptr(),
                                _build.stream_of(out)))
         return out
 
     def bwd(g):
         dtab = torch.zeros_like(tables)
-        check(lib.vt_fused_bwd(tables.data_ptr(), fp.cells_d.data_ptr(),
-                               fp.tblidx_d.data_ptr(), fp.batch_tile_d.data_ptr(),
-                               g.data_ptr(), tables.shape[0], tb, tables.shape[1], n, tc,
-                               n * n // tc, *prm, dtab.data_ptr(), _build.stream_of(dtab)))
+        pre = (torch.empty((n * n, n), dtype=torch.float64, device=g.device),
+               ) if bwd_windowed else ()
+        check(lib.vt_fused_bwd(*ptrs, g.data_ptr(), tables.shape[0], tb, tables.shape[1], n,
+                               tc, n * n // tc, *prm, *(p.data_ptr() for p in pre),
+                               dtab.data_ptr(), _build.stream_of(dtab)))
         return dtab
 
     return fwd, bwd
@@ -147,10 +175,11 @@ def check_plan(fp, coords, target, parent, what: str) -> bool:
         pocc = pfwd()
         same = bitwise_equal(occ, pocc)
         ok &= same
-        pe8 = float_err(pbwd(g), want8)
-        line += (f"; parent B7 {float_err(pocc, want):.3e}, B8 {pe8:.3e}; B7 bitwise "
-                 f"the parent's: {same}")
-        del pocc
+        pdtab = pbwd(g)
+        line += (f"; parent B7 {float_err(pocc, want):.3e}, B8 {float_err(pdtab, want8):.3e};"
+                 f" B7 bitwise the parent's: {same}; B8 bitwise the parent's (not "
+                 f"required): {bitwise_equal(dtab, pdtab)}")
+        del pocc, pdtab
         calls = {"B7": (lambda: pfwd(), calls["B7"]), "B8": (lambda: pbwd(g), calls["B8"])}
     print(line)
     del want, want8
@@ -185,7 +214,7 @@ def torus_fit(n: int, engine: str = "fused"):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", help="an earlier tree with the full-row B7 / B8")
+    parser.add_argument("--parent", help="an earlier tree (its B7 / B8 full-row or windowed)")
     parser.add_argument("--n", type=int, default=512)
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -15,12 +15,14 @@ refreshed one, at the coordinates of the moment:
 - B9 against `seg_fwd_plain` (out_a, out_b and the carry, limit 1e-4)
   and B11 against `seg_bwd_plain` (limit 1e-3 x max|plain|) for the loss
   cotangent;
-- with `--parent DIR` (a tree whose `voxtpu_torch/csrc/soft_vox_seg.cu`
-  still has the whole-panel B9 and B11 and their C signatures, built
-  here with nvcc into `voxtpu_torch/csrc/build/`): B9's out_a, out_b
-  and carry bitwise against that tree's, both trees' B11 errors against
-  the plain version, and both trees' B9 and B11 timed in turns (parent,
-  change, change, parent; CUDA events, median of 5 each);
+- with `--parent DIR` (an earlier tree, its
+  `voxtpu_torch/csrc/soft_vox_seg.cu` built here with nvcc into
+  `voxtpu_torch/csrc/build/` and bound with the C signatures of its own
+  `voxtpu_torch/_build.py`: the whole-panel B9 and B11, or windowed ones
+  whose B9 takes a work buffer): B9's out_a, out_b and carry bitwise
+  against that tree's, both trees' B11 errors against the plain version,
+  and both trees' B9 and B11 timed in turns (parent, change, change,
+  parent; CUDA events, median of 5 each);
 - the live slots and the mean window clipped to the panel, in columns.
 
 Between the plans, each step's loss, wall time and peak device memory.
@@ -30,7 +32,6 @@ Exits 1 if a check fails.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
 import sys
 import time
@@ -42,26 +43,20 @@ sys.path.insert(0, ROOT)
 
 from chip_smoke import (GRAD_TOL, OCC_TOL, TAU, bitwise_equal, card_line,  # noqa: E402
                         cuda_ms, float_err, loss_cotangent, seg_windows)
-from tools.check_fused_window import parent_library, torus_fit  # noqa: E402
+from tools.check_fused_window import parent_library, torus_fit, windowed  # noqa: E402
 from voxtpu_torch import _build  # noqa: E402
 from voxtpu_torch.ops import soft_vox_seg as S  # noqa: E402
 from voxtpu_torch.ops.soft_vox_fused import tables_of  # noqa: E402
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The whole-panel kernels' C signatures (B9 without a work buffer).
-PARENT_SIGNATURES = {
-    "vt_seg_fwd": [_P] * 6 + [_I] * 7 + [_F] * 6 + [_P] * 4,
-    "vt_seg_bwd": [_P] * 7 + [_I] * 7 + [_F] * 6 + [_P, _P],
-}
-
-
 def parent_calls(lib, sp, tables, prm):
     """The parent tree's B9 (tables -> out_a, out_b, carry) and B11
-    ((tables, g, gpre) -> table cotangents) on plan `sp`."""
+    ((tables, g, gpre) -> table cotangents) on plan `sp`; a windowed B9
+    also takes the batch count and a work buffer."""
     n, tc, tz = sp.spec.n, sp.tc, sp.tz
     tb, nt = sp.cells_d[0].numel(), n * n // tc
     ptrs = (tables.data_ptr(), sp.cells_d.data_ptr(), sp.tblidx_d.data_ptr(),
             sp.batch_tile_d.data_ptr(), sp.batch_panel_d.data_ptr())
+    fwd_windowed = windowed(lib, "vt_seg_fwd")
 
     def check(err):
         if err:
@@ -73,8 +68,12 @@ def parent_calls(lib, sp, tables, prm):
         out_b = torch.zeros_like(out_a)
         carry = torch.zeros((nt, n // S.LATTICE, tc), dtype=torch.float32,
                             device=tables.device)
-        check(lib.vt_seg_fwd(*ptrs, sp.run_start_d.data_ptr(), sp.run_start_d.numel() - 1,
-                             tb, tables.shape[1], n, tc, tz, nt, *prm, out_a.data_ptr(),
+        runs = (sp.run_start_d.data_ptr(),
+                *((tables.shape[0],) if fwd_windowed else ()), sp.run_start_d.numel() - 1)
+        work = (torch.empty((sp.cells_d.numel(), 4), dtype=torch.int32, device=out_a.device),
+                ) if fwd_windowed else ()
+        check(lib.vt_seg_fwd(*ptrs, *runs, tb, tables.shape[1], n, tc, tz, nt, *prm,
+                             *(w.data_ptr() for w in work), out_a.data_ptr(),
                              out_b.data_ptr(), carry.data_ptr(), _build.stream_of(out_a)))
         return out_a, out_b, carry
 
@@ -144,14 +143,15 @@ def check_plan(sp, coords, target, parent, what: str) -> bool:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", help="an earlier tree with the whole-panel B9 / B11")
+    parser.add_argument("--parent",
+                        help="an earlier tree (its B9 / B11 whole-panel or windowed)")
     parser.add_argument("--n", type=int, default=512)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("check_seg_window: no CUDA device is available", file=sys.stderr)
         return 2
     print(card_line())
-    parent = (parent_library(args.parent, "soft_vox_seg.cu", PARENT_SIGNATURES)
+    parent = (parent_library(args.parent, "soft_vox_seg.cu", ("vt_seg_fwd", "vt_seg_bwd"))
               if args.parent else None)
     fit, state, target = torus_fit(args.n, "seg")
     ok = check_plan(fit.engine_plan, state.coords, target, parent, f"{args.n}^3 step 1")

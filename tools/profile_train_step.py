@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one VoxelFit step goes, on one CUDA card.
 
-    python3 tools/profile_train_step.py [--n N] [fused] [seg]   # from the repository root
+    python3 tools/profile_train_step.py [--n N] [fused] [seg] [cuda]   # from the repository root
 
 The training path of `chip_smoke.py` (phase 6): a torus brought to
 1,348,128 faces and rotated, its hard grid at N^3 (default 512; at
@@ -10,10 +10,11 @@ start shifted by half a voxel along x plus 0.1 voxel of jitter,
 `make_soft_plan(pad_window=2)`, `VoxelFit(engine=...)` with Adam at a
 quarter of a voxel, for each engine named (default: fused, then seg).
 Prints the card's name, power limit and clocks; per engine the host
-time of its plan build (`FusedSoftPlan` or `SegSoftPlan`); the wall
-time of 5 warm steps (host clock around a synchronize); the peak device
-memory of a step; a `torch.profiler` table of one step; and the
-device's busy time and idle share of that step's wall time.
+time of its plan build (`FusedSoftPlan`, `SegSoftPlan` or
+`SoftCudaPlan`); the wall time of 5 warm steps (host clock around a
+synchronize); the peak device memory of a step; a `torch.profiler`
+table of one step; and the device's busy time and idle share of that
+step's wall time.
 """
 
 from __future__ import annotations
@@ -75,9 +76,10 @@ def profile_engine(engine: str, plan, target, start, vs) -> None:
     fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine=engine,
                    refresh_every=0)
     ep = fit.engine_plan
+    rows = f", {ep.num_pairs} table rows" if hasattr(ep, "num_pairs") else ""
     print(f"\n== engine {engine}: {type(ep).__name__} {time.perf_counter() - t0:.3f} s "
           f"(with its device copies); {ep.num_fragments} slots in {ep.num_batches} "
-          f"batches, {ep.num_pairs} table rows")
+          f"batches{rows}")
     state = fit.init(start)
 
     def step():

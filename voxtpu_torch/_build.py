@@ -47,12 +47,12 @@ SIGNATURES = {
     # tables, cells, tblidx, batch_tile, g, num_batches, tb, tbl, n, tc,
     # num_tiles, ox, oy, oz, vs, tau_e, tau_x, pre, dtab, stream
     "vt_fused_bwd": [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P] * 3,
-    # wb, xb, cells, batch_tile, run_start, num_runs, tb, n, tc, num_tiles,
-    # ox, vs, tau_x, out, stream
-    "vt_fragment_fwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P, _P],
+    # wb, xb, cells, batch_tile, run_start, num_batches, num_runs, tb, n,
+    # tc, num_tiles, ox, vs, tau_x, work, out, stream
+    "vt_fragment_fwd": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P] * 3,
     # wb, xb, cells, batch_tile, g, num_batches, tb, n, tc, num_tiles,
-    # ox, vs, tau_x, dw, dx, stream
-    "vt_fragment_bwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P, _P, _P],
+    # ox, vs, tau_x, pre, dw, dx, stream
+    "vt_fragment_bwd": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P] * 4,
     # tables, cells, tblidx, batch_tile, batch_panel, run_start,
     # num_batches, num_runs, tb, tbl, n, tc, tz, num_tiles, ox, oy, oz, vs,
     # tau_e, tau_x, work, out_a, out_b, carry, stream

@@ -2,8 +2,9 @@
 // soft_vox_seg.cu): a slot's fragment rebuilt from its triangle's
 // 16-coefficient table row, the 64-bit fixed-point sum of the forward
 // kernels, a slot's transition window (`slot_window`), the windowed
-// forward accumulation of B7 and B9 (`slot_record`, `accumulate_windows`,
-// `store_windows`), and the chain rule and per-table-row sums of the
+// forward accumulation of B7, B9 and B13 fwd (`slot_record`,
+// `accumulate_windows`, `store_windows`), the window sums of B8 and B13
+// bwd (`window_sums`), and the chain rule and per-table-row sums of the
 // backward kernels. Included, never compiled alone.
 
 #pragma once
@@ -87,7 +88,7 @@ __device__ __forceinline__ float fix_value(unsigned long long acc, bool bad) {
 }
 
 // ---------------------------------------------------------------------
-// Transition windows (B7, B8, B9, B11).
+// Transition windows (B7, B8, B9, B11, B13).
 //
 // With v = (xh - cx) / tau_x as every kernel computes it (column centre,
 // subtraction, division, each rounded on its own), v is non-increasing
@@ -150,17 +151,60 @@ __device__ __forceinline__ Window clipped_window(float xh, int lo, int hi, const
   return {min(max(w.a, lo), hi), min(max(w.b, lo), hi)};
 }
 
-// A forward kernel's record of a live slot of local cell c over the
-// columns [lo, hi) it owns (B7: the row, B9: the panel): (c, w, xh,
-// a | b << 16), the window clipped to [lo, hi), or the whole of it
-// where the slot may not be windowed (|w| > 1, w or xh not finite, or a
-// launch geometry `slot_window` cannot step).
-__device__ __forceinline__ int4 slot_record(int c, const Frag& f, int lo, int hi,
+// A forward kernel's record of a live slot of local cell c, weight w
+// and x-hit xh over the columns [lo, hi) it owns (B7, B13: the row, B9:
+// the panel): (c, w, xh, a | b << 16), the window clipped to [lo, hi),
+// or the whole of it where the slot may not be windowed (|w| > 1, w or
+// xh not finite, or a launch geometry `slot_window` cannot step).
+__device__ __forceinline__ int4 slot_record(int c, float w, float xh, int lo, int hi,
                                             const Geom& g) {
   Window win = {lo, hi};
-  if (fabsf(f.w) <= 1.0f && isfinite(f.xh) && window_geom(g))
-    win = clipped_window(f.xh, lo, hi, g);
-  return make_int4(c, __float_as_int(f.w), __float_as_int(f.xh), win.a | (win.b << 16));
+  if (fabsf(w) <= 1.0f && isfinite(xh) && window_geom(g)) win = clipped_window(xh, lo, hi, g);
+  return make_int4(c, __float_as_int(w), __float_as_int(xh), win.a | (win.b << 16));
+}
+
+// A backward slot's window [a, b) on its cotangent row `row` (B8, B13
+// bwd): the whole row where xh is not finite, the launch geometry fails
+// `window_geom`, or the row's total in g's float64 prefix `pre` is not
+// finite (its NaN and inf then reach the slot as the full row sends
+// them).
+__device__ __forceinline__ Window grad_window(float xh, long long row,
+                                              const double* __restrict__ pre,
+                                              const Geom& g) {
+  if (isfinite(xh) && window_geom(g) && isfinite(pre[(row + 1) * g.n - 1]))
+    return slot_window(xh, g);
+  return {0, g.n};
+}
+
+// A backward slot's sums over its window [a, b) of cotangent row
+// `grow`: *sa = sum of g[x] * sig and *sb = sum of g[x] * sig * (1 -
+// sig), in float32, kGroup lanes a slot striding over the columns, then
+// a fixed shuffle tree; every lane of the group gets both. Called by
+// every lane of the warp (a lane with no slot passes a = b).
+__device__ __forceinline__ void window_sums(const float* __restrict__ grow, float xh,
+                                            int a, int b, const Geom& g, float* sa,
+                                            float* sb) {
+  float ra = 0.0f, rb = 0.0f;
+  for (int x = a + (int)(threadIdx.x % kGroup); x < b; x += kGroup) {
+    const float sig = sigmoid(profile_arg(xh, x, g));
+    const float ps = grow[x] * sig;
+    ra += ps;
+    rb += ps * (1.0f - sig);
+  }
+  for (int off = kGroup / 2; off > 0; off >>= 1) {
+    ra += __shfl_xor_sync(0xffffffffu, ra, off);
+    rb += __shfl_xor_sync(0xffffffffu, rb, off);
+  }
+  *sa = ra;
+  *sb = rb;
+}
+
+// A backward slot's dw: the saturated columns' sum of g left of a, from
+// the float64 prefix, plus its window sum sa, rounded once.
+__device__ __forceinline__ float grad_dw(const double* __restrict__ pre, long long row,
+                                         int a, float sa, int n) {
+  const double left = a > 0 ? pre[row * n + a - 1] : 0.0;
+  return (float)(left + (double)sa);
 }
 
 // acc += v (mod 2^64) as two native 32-bit shared atomics, the low
@@ -205,9 +249,10 @@ __device__ __forceinline__ void scan_rows(u64* acc, const u64* base, int tc) {
   }
 }
 
-// A forward block's shared memory (B7, B9), laid out from the front of
-// its dynamic shared memory by `acc_smem`. The base is an array of its
-// own because the rows' first columns all lie in one shared-memory bank.
+// A forward block's shared memory (B7, B9, B13 fwd), laid out from the
+// front of its dynamic shared memory by `acc_smem`. The base is an array
+// of its own because the rows' first columns all lie in one shared-memory
+// bank.
 struct AccSmem {
   u64* acc;        // [tc][kScanCols] fixed-point sums
   int4* item;      // [tb] the current batch's listed slots

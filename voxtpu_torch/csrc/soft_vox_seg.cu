@@ -137,7 +137,7 @@ __global__ void seg_window_kernel(const float* __restrict__ tables,
     int gy, gz;
     tile_cell(tile, c, g, &gy, &gz);
     const Frag f = frag_at(at, center(g.oy, gy, g.vs), center(g.oz, gz, g.vs), g);
-    r = slot_record(c, f, p0, p0 + kPanel, g);
+    r = slot_record(c, f.w, f.xh, p0, p0 + kPanel, g);
   }
   rec[k] = r;
 }

@@ -7,10 +7,21 @@ and x-hit; a static permutation lays them out in tile batches of
 
 - B13 fwd (`fragment_fwd`, `csrc/soft_vox.cu::vt_fragment_fwd`,
   replaces `_fwd_kernel`) sums w * sigmoid((x_hit - cx) / tau_x) per
-  cell: B7's accumulate, with (w, x_hit) read instead of rebuilt;
+  cell: a record pass writes each slot's (cell, w, x_hit) and its
+  transition window, the columns where the sigmoid is neither exactly 1
+  nor a term that rounds to 0, and B7's windowed accumulation adds the
+  saturated columns as exact carries and the window's terms in 64-bit
+  fixed point, bitwise the full row's sums;
 - B13 bwd (`fragment_bwd`, `vt_fragment_bwd`, replaces `_bwd_kernel`)
-  takes the occupancy cotangent to per-slot (dw, dx_hit), B8's per-slot
-  reduction without the chain rule to coefficients.
+  takes the occupancy cotangent to per-slot (dw, dx_hit): B8's float64
+  row prefix of g gives the saturated columns' sum, and 8 lanes a slot
+  sum its window (B8's window sums, without the chain rule).
+
+Both evaluate ~23 sigmoids a slot at tau_x of half a voxel, not n: the
+window pairs and their shared-memory adds bound them, with the record
+pass and the prefix's bytes beside (`chip_smoke.py` prints the bound).
+The wrappers allocate the kernels' scratch: 16 bytes of record a slot
+for the forward, the (n*n, n) float64 prefix for the backward.
 
 voxtpu writes the permutation as two sorts (TPU sorts beat its gathers
 and scatters); here it is one index gather each way (`_Permute`): the
@@ -89,10 +100,13 @@ def fragment_fwd(wb, xb, cells_b, batch_tile, run_start, *, n: int, tc: int,
     out = torch.zeros((n, n, n), dtype=torch.float32, device=wb.device)
     num_runs = run_start.numel() - 1
     if num_runs > 0:
+        # one int4 record per slot: local cell, w, x_hit, window
+        work = torch.empty((cells_b.numel(), 4), dtype=torch.int32, device=out.device)
         _build.launch("vt_fragment_fwd", wb.data_ptr(), xb.data_ptr(),
                       cells_b.data_ptr(), batch_tile.data_ptr(),
-                      run_start.data_ptr(), num_runs, tb, n, tc, (n * n) // tc,
-                      *prm, out.data_ptr(), _build.stream_of(out))
+                      run_start.data_ptr(), cells_b.shape[0], num_runs, tb, n, tc,
+                      (n * n) // tc, *prm, work.data_ptr(), out.data_ptr(),
+                      _build.stream_of(out))
         fragment_fwd.launches += 1
     return out
 
@@ -112,11 +126,12 @@ def fragment_bwd(wb, xb, cells_b, batch_tile, g, *, n: int, tc: int, prm):
     dw = torch.zeros_like(wb)
     dx = torch.zeros_like(xb)
     if cells_b.shape[0]:
+        pre = torch.empty((n * n, n), dtype=torch.float64, device=g.device)  # row prefix
         _build.launch("vt_fragment_bwd", wb.data_ptr(), xb.data_ptr(),
                       cells_b.data_ptr(), batch_tile.data_ptr(), g.data_ptr(),
                       cells_b.shape[0], cells_b[0].numel(), n, tc,
-                      (n * n) // tc, *prm, dw.data_ptr(), dx.data_ptr(),
-                      _build.stream_of(dw))
+                      (n * n) // tc, *prm, pre.data_ptr(), dw.data_ptr(),
+                      dx.data_ptr(), _build.stream_of(dw))
         fragment_bwd.launches += 1
     return dw, dx
 

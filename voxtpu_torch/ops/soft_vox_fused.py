@@ -206,19 +206,14 @@ def _check_fused(tables, cells_b, tblidx_b, batch_tile):
     _build.expect(batch_tile, "batch_tile", torch.int32, (tables.shape[0],))
 
 
-def fwd_smem_bytes(tc: int, tb: int) -> int:
-    """B13 fwd shared memory: the (tc, 64) 64-bit fixed-point
-    accumulator, three staged 4-byte values per slot and a bit per
-    (cell, column) for non-finite terms."""
-    return tc * _XC * 8 + 3 * tb * 4 + (tc + 31) // 32 * _XC * 4
-
-
 def fused_fwd_smem_bytes(tc: int, tb: int) -> int:
-    """B7 and B9 shared memory (`csrc/soft_common.cuh::acc_smem_bytes`):
-    B13 fwd's accumulator and bits, a 16-byte work item per slot instead
-    of the three staged values, a 64-bit base and a carry bit per cell
-    and two counters."""
-    return fwd_smem_bytes(tc, tb) + tb * 4 + tc * 8 + (tc + 31) // 32 * 4 + 8
+    """Shared memory of the windowed accumulation of B7, B9 and B13 fwd
+    (`csrc/soft_common.cuh::acc_smem_bytes`): the (tc, 64) 64-bit
+    fixed-point accumulator and a 64-bit base per cell, a 16-byte work
+    item per slot, a bit per (cell, column) and a carry bit per cell for
+    non-finite terms, and two counters."""
+    words = (tc + 31) // 32
+    return tc * (_XC + 1) * 8 + tb * 16 + words * (_XC + 1) * 4 + 8
 
 
 def _check_fwd_smem(tc: int, tb: int) -> None:
