@@ -543,6 +543,27 @@ def test_seg_kernels_match_plain(dev, n):
                                  soft_vox_seg.seg_bwd)] == [k + 1 for k in counts]
 
 
+@pytest.mark.parametrize("n,tc,tz", [(256, 128, 8), (384, 64, 8), (512, 128, 8)])
+def test_seg_combine_kernel_on_random_parts(dev, n, tc, tz):
+    """B10 on seeded random out_a, out_b and carries, bitwise its plain
+    version; a NaN carry puts NaN where the plain version does."""
+    rng = np.random.default_rng(n + tc)
+    nt = n * n // tc
+    shape = (nt, n // soft_vox_seg.PANEL, tc, soft_vox_seg.PANEL)
+    out_a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    out_b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    carry = rng.uniform(-1, 1, (nt, n // soft_vox_seg.LATTICE, tc)).astype(np.float32)
+    carry[nt // 2, 1, tc // 3] = np.nan
+    carry = torch.from_numpy(carry).to(dev)
+    kw = dict(n=n, tc=tc, tz=tz)
+    got = soft_vox_seg.seg_combine(out_a, out_b, carry, **kw)
+    want = soft_vox_seg.seg_combine_plain(out_a, out_b, carry, **kw)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
 def test_seg_engine_gradient_on_the_card_matches_the_cpu(dev):
     c, sp, _ = _soft_case(256)
     mesh = Mesh(coords=c, faces=sp.faces_array, faces_normals=sp.faces_array)

@@ -10,7 +10,8 @@ barriers, cp.async copies landing only when waited for) and launched
 through their C entry points with the wrappers' own launch geometry
 (`jfa_cuda._walk_geometry`). Tolerance: bitwise, against
 `flood_step_plain` (and `flood_step_rows_plain` for the bands) at every
-stride. The dyadic grids make many seeds exactly equidistant,
+stride; B6's fused k = 1 step (emit_sdf) against `sdf_from_seed_plain`
+after `flood_step_plain`, float32 bitwise. The dyadic grids make many seeds exactly equidistant,
 so the candidate order and the own seed's precedence on ties are
 tested. Skips where no C++20 compiler is installed.
 """
@@ -66,10 +67,17 @@ def _b4(lib, seed, org, k, band):
     return out
 
 
-def _b6(lib, seed, org, k):
-    out = torch.full_like(seed, -2)
-    _check(lib.vt_flood_step_pipe(seed.data_ptr(), 0, org.data_ptr(), out.data_ptr(),
-                                  seed.shape[0], k, 0, None))
+def _b6(lib, seed, org, k, occ=None):
+    """B6 through its C entry: int32 seeds, or with `occ` the float32
+    signed distance (emit_sdf)."""
+    n = seed.shape[0]
+    if occ is None:
+        out = torch.full_like(seed, -2)
+    else:
+        out = torch.full(seed.shape, float("nan"), dtype=torch.float32)
+    _check(lib.vt_flood_step_pipe(seed.data_ptr(), 0 if occ is None else occ.data_ptr(),
+                                  org.data_ptr(), out.data_ptr(), n, k, int(occ is not None),
+                                  *J._walk_geometry(n, k, n).args(), None))
     return out
 
 
@@ -80,7 +88,7 @@ def _legacy(lib, seed, org, k):
     return out
 
 
-def _flood(kind, n):
+def _occupancy(kind, n):
     rng = np.random.default_rng(n)
     occ = np.zeros((n, n, n), bool)
     if kind == "single":
@@ -88,7 +96,12 @@ def _flood(kind, n):
     elif kind != "empty":
         occ = rng.random((n, n, n)) < {"sparse": 0.01, "dense": 0.3, "ties": 0.05}[kind]
     spec = GridSpec(n=n, **(DYADIC if kind == "ties" else OTHER))
-    return jfa_init_seed(torch.from_numpy(occ)), J.org_tensor(spec, "cpu")
+    return torch.from_numpy(occ), J.org_tensor(spec, "cpu")
+
+
+def _flood(kind, n):
+    occ, org = _occupancy(kind, n)
+    return jfa_init_seed(occ), org
 
 
 # n = 32: strides below the 32-column tile (contiguous columns); n = 40
@@ -100,7 +113,8 @@ def _flood(kind, n):
 ])
 def test_walk_source_matches_plain_at_every_stride(lib, n, kind, bands):
     """B3 and B4 (several bands) from `csrc/jfa.cu` against their plain
-    versions; B6 where k divides n and P1's `legacy` against B3's."""
+    versions; B6 (the walk's third entry) where k divides n and P1's
+    `legacy` against B3's."""
     seed, org = _flood(kind, n)
     k = n // 2
     while k >= 1:
@@ -115,3 +129,29 @@ def test_walk_source_matches_plain_at_every_stride(lib, n, kind, bands):
         seed = want
         k //= 2
     assert bool((seed < 0).all()) == (kind == "empty")
+
+
+# The same grids; n = 40 and 66 as well, whose walks run a column lattice
+# at the large strides before the fused k = 1 step.
+@pytest.mark.parametrize("n,kind", [
+    (32, "sparse"), (32, "dense"), (32, "empty"), (32, "single"), (40, "ties"),
+    (66, "dense"),
+])
+def test_fused_sdf_step_source_is_b5_after_b3(lib, n, kind):
+    """B6 with emit_sdf at k = 1, after the plain flood down to k = 2:
+    bitwise B5 after B3 and bitwise its plain version; on the empty grid
+    every value +-inf by the occupancy's sign."""
+    occ, org = _occupancy(kind, n)
+    seed = jfa_init_seed(occ)
+    k = n // 2
+    while k >= 2:
+        seed = J.flood_step_plain(seed, org, k)
+        k //= 2
+    got = _b6(lib, seed, org, 1, occ)
+    want = J.sdf_from_seed_plain(J.flood_step_plain(seed, org, 1), occ, org)
+    assert torch.equal(got, want)
+    assert torch.equal(got, J.flood_step_pipe_plain(seed, org, 1, occ))
+    if kind == "empty":
+        assert torch.equal(got, torch.full_like(got, -float("inf")))
+    else:
+        assert bool(torch.isfinite(got).all())

@@ -1,11 +1,12 @@
-"""The seg soft kernels' CUDA source (B9, B11), run on the CPU.
+"""The seg soft kernels' CUDA source (B9, B10, B11), run on the CPU.
 
 Without a card the wrappers run the plain versions, so the CPU tests
 never reach `csrc/soft_vox_seg.cu`: B9's record pass, its transition
 windows clipped to the panel, the saturated panel columns as per-cell
 differences and their scan, the carry taken from the half-0 block's
-base; B11's windows, its in-panel prefix, its finite-panel flags and
-ranged row sums. Here the source is compiled with the host C++ compiler
+base; B10's whole-panel blocks, float4 lanes and cell offsets; B11's
+windows, its in-panel prefix, its finite-panel flags and ranged row
+sums. Here the source is compiled with the host C++ compiler
 against `tests/cuda_emulation.h` (blocks one after another, a block's
 threads as host threads with real barriers, shuffles and atomics) and
 launched through its C entry points.
@@ -26,6 +27,11 @@ launched through its C entry points.
   against `seg_bwd_plain` within 1e-3 x max|plain|, on the same slots
   and on a seg plan of a small icosphere at n = 256 (the engine's
   floor).
+- B10 is held bitwise against `seg_combine_plain` on seeded random
+  out_a, out_b and carries at n = 256 and 384 (the engine's floor, and
+  three panels) with square tiles of 128 and 64 cells; a NaN carry must
+  put NaN where the plain version does. Its C entry must refuse a
+  geometry it cannot take.
 - `chip_smoke.seg_window_widths` and `chip_smoke.seg_windows`, the
   counts behind B9's and B11's bounds, equal the windows of B9's own
   slot records.
@@ -117,7 +123,7 @@ def lib(tmp_path_factory):
     so = build_host_library(tmp_path_factory.mktemp("seg_emulated"), files,
                             ["reference.cc"], "seg_emulated")
     library = ctypes.CDLL(str(so))
-    for entry in ("vt_seg_fwd", "vt_seg_bwd"):
+    for entry in ("vt_seg_fwd", "vt_seg_combine", "vt_seg_bwd"):
         getattr(library, entry).argtypes = _build.SIGNATURES[entry]
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     library.ref_seg_fwd.argtypes = [P] * 5 + [I] * 7 + [Fl] * 6 + [P] * 3
@@ -212,6 +218,14 @@ def _b11(lib, tables, cells, tblidx, tiles, panels, g, n, tc, tz, prm):
                          n * n // tc, *prm, dtab.data_ptr(), None)
     assert err == 0, f"launch error {err}"
     return dtab, gpre
+
+
+def _b10(lib, out_a, out_b, carry, n, tc, tz, out=None):
+    pre = S.carry_prefix(carry).contiguous()
+    if out is None:
+        out = torch.full((n, n, n), -7.0)
+    return lib.vt_seg_combine(out_a.data_ptr(), out_b.data_ptr(), pre.data_ptr(), n, tc, tz,
+                              out.data_ptr(), None), out
 
 
 def _whole_panel(lib, tables, cells, tblidx, tiles, panels, prm):
@@ -327,6 +341,52 @@ def test_b11_takes_the_whole_panel_where_the_cotangent_is_not_finite(lib):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     top = float(want[~bad].abs().max())
     assert float((got[~bad] - want[~bad]).abs().max()) <= GRAD_TOL * top
+
+
+@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("tc,tz", [(128, 8), (64, 8)])
+def test_b10_source_is_bitwise_plain(lib, n, tc, tz):
+    """B10 on seeded random family arrays and carries (some zero, as
+    unvisited blocks are) against `seg_combine_plain`, bitwise; panel
+    j = 0 takes no B' for its first 64 columns. A carry holding NaN (B9
+    marks |w| > 1 so) puts NaN where the plain version does, every
+    other value bitwise."""
+    rng = np.random.default_rng(n + tc)
+    nt = n * n // tc
+    shape = (nt, n // S.PANEL, tc, S.PANEL)
+    out_a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    out_b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    out_a[rng.random(nt) < 0.3] = 0.0
+    carry = torch.from_numpy(rng.uniform(-1, 1, (nt, n // S.LATTICE, tc)).astype(np.float32))
+    carry[rng.random(carry.shape) < 0.5] = 0.0
+    err, got = _b10(lib, out_a, out_b, carry, n, tc, tz)
+    assert err == 0, f"launch error {err}"
+    want = S.seg_combine_plain(out_a, out_b, carry, n=n, tc=tc, tz=tz)
+    assert torch.equal(_bits(got), _bits(want))
+    carry[nt // 2, 1, tc // 3] = float("nan")
+    carry[nt - 1, n // S.LATTICE - 1, tc - 1] = float("nan")
+    err, got = _b10(lib, out_a, out_b, carry, n, tc, tz)
+    assert err == 0
+    want = S.seg_combine_plain(out_a, out_b, carry, n=n, tc=tc, tz=tz)
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+def test_b10_entry_refuses_a_geometry_it_cannot_take(lib):
+    """n not a multiple of 128, tz not dividing tc, tc / tz not dividing
+    n, or a misaligned array: an error, and the grid untouched."""
+    n, tc, tz = 256, 128, 8
+    out_a, out_b, carry = _outputs(n, tc)
+    out = torch.full((n, n, n), -7.0)
+    assert _b10(lib, out_a, out_b, carry, n, tc, tz, out)[0] == 0
+    assert bool((out == 0).all())
+    out.fill_(-7.0)
+    flat = torch.zeros(out_a.numel() + 1)
+    for n_, tc_, tz_, a in ((320, tc, tz, out_a), (n, tc, 6, out_a), (n, 96, 8, out_a),
+                            (n, 0, tz, out_a), (n, tc, tz, flat[1:])):
+        assert _b10(lib, a, out_b, carry, n_, tc_, tz_, out)[0] != 0, (n_, tc_, tz_)
+    assert bool((out == -7.0).all())
 
 
 def _record_widths(work, valid):

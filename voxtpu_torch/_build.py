@@ -78,8 +78,8 @@ SIGNATURES = {
     "vt_flood_step_rows": [_P, _P, _P] + [_I] * 13 + [_P],
     # seed, occ, org, out, n, stream
     "vt_sdf_from_seed": [_P, _P, _P, _P, _I, _P],
-    # seed, occ, org, out, n, k, emit_sdf, stream
-    "vt_flood_step_pipe": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # seed, occ, org, out, n, k, emit_sdf, `WalkGeometry.args()`, stream
+    "vt_flood_step_pipe": [_P] * 4 + [_I] * 13 + [_P],
     # cells2d, xs2d, row_start, num_chunks, tile_id, tile_mask, num_active,
     # num_rows, n, tc, num_tiles, out, stream
     "vt_wq_fill": [_P] * 6 + [_I] * 5 + [_P, _P],

@@ -5,9 +5,9 @@
 //   B4  _step_kernel_yblocked  (vt_flood_step_rows): the same step in
 //                              (1, H, n) row bands, for 512 < N <= 1024
 //   B5  _final_kernel          (vt_sdf_from_seed): signed squared distance
-//   B6  _pipe_kernel           (vt_flood_step_pipe): B3 by a residue walk
-//                              that unpacks each seed once; at k = 1
-//                              optionally fused with B5 (JFA_PIPE=1)
+//   B6  _pipe_kernel           (vt_flood_step_pipe): B3 at a stride k | n,
+//                              the walk's third entry; at k = 1 optionally
+//                              with B5 fused into its write-out (JFA_PIPE=1)
 //
 // State is one int32 seed grid, 10-bit packed (z << 20 | y << 10 | x),
 // -1 where no seed is known; N <= 1024.
@@ -22,7 +22,7 @@
 // order of _step_kernel (dz, then dy, then dx over -1, 0, 1, skipping
 // the centre; `best` starts at the voxel's own seed) and strict `<`.
 //
-// B3 and B4: one lattice walk (flood_walk), two entry points. The TPU
+// B3, B4 and B6: one lattice walk (flood_walk), three entry points. The TPU
 // kernel takes three (n, n) planes into VMEM per z and builds in-plane
 // neighbours with rolls and masks; B4 exists because at N = 1024 the
 // ~26 live candidate planes exceed VMEM. On this card the step's bound
@@ -80,6 +80,10 @@
 // whole grid. Its result is B3's at every k and band; n, band and k
 // need not divide each other. Where k >= band a residue has one row a
 // band, so its window stages 3 rows a computed row.
+//
+// B6 is the walk at a stride k | n (voxtpu's residue walk), and at k = 1
+// with emit_sdf the walk whose write-out stores the signed distance of
+// the chosen seed: B5 fused in, bitwise (see flood_sdf_kernel).
 
 // Two tools match this file's text. tests/test_torch_flood_emulated.py
 // runs it on the host by rewriting the cuda_runtime.h include, each
@@ -202,9 +206,12 @@ __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-template <bool kBands>
+// kSdf: the write-out stores sign(occ) * d2 of the chosen seed as a
+// float (B6 fused with B5) instead of the seed; occ is read only then.
+template <bool kBands, bool kSdf>
 __device__ __forceinline__ void flood_walk(const int* __restrict__ seed,
-                                           int* __restrict__ out,
+                                           const unsigned char* __restrict__ occ,
+                                           void* __restrict__ out,
                                            const float* __restrict__ org,
                                            const WalkGeom g) {
   // The unpacked window [srows][width], then kRing raw planes of it.
@@ -380,7 +387,12 @@ __device__ __forceinline__ void flood_walk(const int* __restrict__ seed,
 #pragma unroll
       for (int c = 0; c < kColsMax; ++c) {
         const int x = x0 + c * xstep;
-        if (c < ncol && x < n) out[row + x] = col[c].prev;
+        if (c >= ncol || x >= n) continue;
+        if constexpr (kSdf) {
+          ((float*)out)[row + x] = __fmul_rn(occ[row + x] ? 1.0f : -1.0f, col[c].prev_d2);
+        } else {
+          ((int*)out)[row + x] = col[c].prev;
+        }
       }
     }
 #pragma unroll
@@ -396,146 +408,46 @@ __device__ __forceinline__ void flood_walk(const int* __restrict__ seed,
 }
 
 __global__ void __launch_bounds__(kTileX* kTileY, 3)
-    flood_step_kernel(const int* __restrict__ seed, int* __restrict__ out,
-                      const float* __restrict__ org, const WalkGeom g) {
-  flood_walk<false>(seed, out, org, g);
+    flood_step_kernel(const int* __restrict__ seed, const unsigned char* __restrict__ occ,
+                      void* __restrict__ out, const float* __restrict__ org,
+                      const WalkGeom g) {
+  flood_walk<false, false>(seed, occ, out, org, g);
 }
 
 __global__ void __launch_bounds__(kTileX* kTileY, 3)
-    flood_step_rows_kernel(const int* __restrict__ seed, int* __restrict__ out,
+    flood_step_rows_kernel(const int* __restrict__ seed,
+                           const unsigned char* __restrict__ occ, void* __restrict__ out,
                            const float* __restrict__ org, const WalkGeom g) {
-  flood_walk<true>(seed, out, org, g);
+  flood_walk<true, false>(seed, occ, out, org, g);
 }
 
-// B6's windows: per axis the tile + d*k for d = -1, 0, 1, one window of
-// tile + 2k when k is below the tile and three tile-sized windows
-// otherwise.
-constexpr int kRows = 8;
-constexpr int kCols = 32;
-
-__host__ __device__ __forceinline__ int window_len(int tile, int k) {
-  return k < tile ? tile + 2 * k : 3 * tile;
-}
-
-// Window slot of tile offset t shifted by d*k, d in {-1, 0, 1}.
-__device__ __forceinline__ int window_slot(int t, int d, int tile, int k) {
-  return k < tile ? t + d * k + k : (d + 1) * tile + t;
-}
-
-// Tile offset + shift of window slot s (the inverse of window_slot).
-__device__ __forceinline__ int window_offset(int s, int tile, int k) {
-  return k < tile ? s - k : s % tile + (s / tile - 1) * k;
-}
-
-// B6. The TPU kernel walks the planes of one residue class r (mod k) in
-// a sequential grid (k, n/k + 1), carries the previous and current
-// planes in VMEM scratch, reads each seed plane once per step and
-// unpacks each seed once into world coordinates (sxw, syw, szw), +inf
-// in z for no seed, so a candidate costs the distance alone. Blocks run
-// in no order here, so the walk goes inside the block: one block per
-// (in-plane tile of kRows x kCols, residue r, run of kPipeWalk planes of
-// that residue) walks z = r + j*k with a ring of three staged source
-// windows in shared memory (planes z - k, z, z + k), each window the
-// tile + (-k, 0, +k) per axis, each entry unpacked once by the walk's
-// unpack_world (float4 sxw, syw, szw, seed bits); -1 (+inf in z)
-// outside the grid. A plane outside the grid contributes only +inf
-// candidates, which strict `<` never takes, so its nine candidates are
-// skipped.
+// B6. voxtpu's _pipe_kernel is B3's step at a stride k that divides n:
+// it walks the planes of one residue class z mod k in order, unpacks
+// each seed once into world coordinates and keeps the neighbour planes
+// in VMEM; with emit_sdf (voxtpu runs it at k = 1) it writes sign(occ)
+// * d2 of the chosen seed instead of the seed, B5 after B3. On this card
+// that design is the lattice walk above, so B6 is the walk's third
+// entry: vt_flood_step_pipe launches flood_step_kernel (B3's own), or
+// with emit_sdf this kernel, the walk whose write-out stores
+// __fmul_rn(occ ? 1 : -1, prev_d2) in place of prev.
 //
-// Exactness: sxw = ox + sx*vs as in seed_d2, d2 = (px - sxw)^2 +
-// (py - syw)^2 + (pz - szw)^2 left to right (dist_z of dist_xy), each
-// operation rounded on its own: the same floats as seed_d2, so with
-// B3's candidate order and strict `<` the result is B3's bit for bit.
-// With emit_sdf the output is sign(occ) * best_d2 as float32: best_d2
-// is the distance of the chosen seed by B5's formula, so the k = 1
-// step equals B5 after B3.
-//
-// Unlike the walk, each candidate's full distance (8 operations, from
-// shared memory) is computed on its own; device memory reads fall from
-// the one-thread form's 27 a voxel to the window's 9 at large k and
-// ~1.3 at k = 1. Shared memory is 3 windows of up to 24 x 96 float4
-// (110,592 bytes): two blocks an SM.
-constexpr int kPipeWalk = 32;
-
-__global__ void flood_step_pipe_kernel(const int* __restrict__ seed,
-                                       const unsigned char* __restrict__ occ,
-                                       const float* __restrict__ org,
-                                       void* __restrict__ out, int n, int k,
-                                       int emit_sdf) {
-  extern __shared__ float4 ring[];  // [3][rl][cl]
-  const int tiles_x = (n + kCols - 1) / kCols;
-  const int x0 = (blockIdx.x % tiles_x) * kCols;
-  const int y0 = (blockIdx.x / tiles_x) * kRows;
-  const int r = blockIdx.y;
-  const int planes = (n - 1 - r) / k + 1;  // z = r, r + k, ... < n
-  const int j0 = blockIdx.z * kPipeWalk;
-  if (j0 >= planes) return;
-  const int j1 = min(j0 + kPipeWalk, planes);
-  const int tx = threadIdx.x % kCols;
-  const int ty = threadIdx.x / kCols;
-  const int rl = window_len(kRows, k);
-  const int cl = window_len(kCols, k);
-  const int plane = rl * cl;
-  const long long nn = (long long)n * n;
-  const float ox = org[0], oy = org[1], oz = org[2], vs = org[3];
-  const int x = x0 + tx;
-  const int y = y0 + ty;
-  const float px = __fadd_rn(ox, __fmul_rn((float)x, vs));
-  const float py = __fadd_rn(oy, __fmul_rn((float)y, vs));
-
-  // Stage plane j of the residue into ring slot j % 3.
-  auto stage = [&](int j) {
-    const int* src = seed + (long long)(r + j * k) * nn;
-    float4* dst = ring + (j % 3) * plane;
-    for (int sr = ty; sr < rl; sr += kRows) {
-      const int yn = y0 + window_offset(sr, kRows, k);
-      const bool yok = yn >= 0 && yn < n;
-      const int* row = src + (yok ? (long long)yn * n : 0);
-      for (int sc = tx; sc < cl; sc += kCols) {
-        const int xn = x0 + window_offset(sc, kCols, k);
-        const int s = yok && xn >= 0 && xn < n ? row[xn] : -1;
-        dst[sr * cl + sc] = unpack_world(s, ox, oy, oz, vs);
-      }
-    }
-  };
-
-  if (j0 >= 1) stage(j0 - 1);
-  stage(j0);
-  for (int j = j0; j < j1; ++j) {
-    if (j + 1 < planes) stage(j + 1);
-    __syncthreads();
-    if (x < n && y < n) {
-      const int z = r + j * k;
-      const float pz = __fadd_rn(oz, __fmul_rn((float)z, vs));
-      const float4 own = ring[(j % 3) * plane + window_slot(ty, 0, kRows, k) * cl +
-                              window_slot(tx, 0, kCols, k)];
-      int best = __float_as_int(own.w);
-      float best_d2 = dist_z(dist_xy(own, px, py), own, pz);
-      for (int dz = -1; dz <= 1; ++dz) {
-        if ((dz < 0 && j == 0) || (dz > 0 && j + 1 >= planes)) continue;
-        const float4* src = ring + ((j + dz + 3) % 3) * plane;
-        for (int dy = -1; dy <= 1; ++dy) {
-          const float4* row = src + window_slot(ty, dy, kRows, k) * cl;
-          for (int dx = -1; dx <= 1; ++dx) {
-            if (dz == 0 && dy == 0 && dx == 0) continue;
-            const float4 c = row[window_slot(tx, dx, kCols, k)];
-            const float d2 = dist_z(dist_xy(c, px, py), c, pz);
-            if (d2 < best_d2) {
-              best_d2 = d2;
-              best = __float_as_int(c.w);
-            }
-          }
-        }
-      }
-      const long long i = z * nn + (long long)y * n + x;
-      if (emit_sdf) {
-        ((float*)out)[i] = __fmul_rn(occ[i] ? 1.0f : -1.0f, best_d2);
-      } else {
-        ((int*)out)[i] = best;
-      }
-    }
-    __syncthreads();  // every thread has read slot (j - 1) % 3 before it is restaged
-  }
+// Why the fused write-out is B5 after B3 bit for bit: prev_d2 is the
+// chosen seed's distance, dist_z(dist_xy(w, px, py), w, pz) of
+// unpack_world's floats. Those are seed_d2 / packed_d2's floats
+// (jfa_common.cuh), which B5 evaluates, in the same association: the
+// fields exactly (field_f is (float)f), ox + f*vs, px - sx and the
+// squares each rounded on their own, (dx^2 + dy^2) + dz^2; px, py, pz as
+// B5 computes them. `take` keeps d2 with fminf and the own seed's `<=`
+// keeps an equal value, so prev_d2 is the least candidate distance,
+// which is the chosen seed's. A voxel with no seed keeps +inf (B5's
+// value for the -1 sentinel), and the exact skips leave a column at
+// (-1, +inf), which is B5's result for it too. The product with +-1.0f
+// is B5's. tests/test_torch_flood_emulated.py holds it bitwise.
+__global__ void __launch_bounds__(kTileX* kTileY, 3)
+    flood_sdf_kernel(const int* __restrict__ seed, const unsigned char* __restrict__ occ,
+                     void* __restrict__ out, const float* __restrict__ org,
+                     const WalkGeom g) {
+  flood_walk<false, true>(seed, occ, out, org, g);
 }
 
 __global__ void sdf_from_seed_kernel(const int* __restrict__ seed,
@@ -565,18 +477,19 @@ unsigned int blocks_for(int n) {
 
 }  // namespace
 
-// B3 and B4: the launch geometry comes from `_walk_geometry` (blocks
+// B3, B4 and B6: the launch geometry comes from `_walk_geometry` (blocks
 // of kTileX x kTileY threads, `smem` bytes of window and ring).
 template <typename Kernel>
-int launch_walk(Kernel kernel, const void* seed, void* out, const void* org,
-                WalkGeom g, int gx, int gy, int gz, int smem, void* stream) {
+int launch_walk(Kernel kernel, const void* seed, const void* occ, void* out,
+                const void* org, WalkGeom g, int gx, int gy, int gz, int smem,
+                void* stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<dim3(gx, gy, gz), dim3(kTileX, kTileY), smem, (cudaStream_t)stream>>>(
-      (const int*)seed, (int*)out, (const float*)org, g);
+      (const int*)seed, (const unsigned char*)occ, out, (const float*)org, g);
   return (int)cudaGetLastError();
 }
 
@@ -584,7 +497,7 @@ extern "C" int vt_flood_step(const void* seed, void* out, const void* org,
                              int n, int k, int mr_shift, int chunks,
                              int groups, int walks, int cols, int x_groups,
                              int gx, int gy, int gz, int smem, void* stream) {
-  return launch_walk(flood_step_kernel, seed, out, org,
+  return launch_walk(flood_step_kernel, seed, nullptr, out, org,
                      WalkGeom{n, k, n, mr_shift, chunks, groups, walks, cols, x_groups},
                      gx, gy, gz, smem, stream);
 }
@@ -594,31 +507,23 @@ extern "C" int vt_flood_step_rows(const void* seed, void* out, const void* org,
                                   int chunks, int groups, int walks, int cols,
                                   int x_groups, int gx, int gy, int gz,
                                   int smem, void* stream) {
-  return launch_walk(flood_step_rows_kernel, seed, out, org,
+  return launch_walk(flood_step_rows_kernel, seed, nullptr, out, org,
                      WalkGeom{n, k, band, mr_shift, chunks, groups, walks, cols, x_groups},
                      gx, gy, gz, smem, stream);
 }
 
-// B6: out is int32 seeds, or with emit_sdf float32 sign(occ) * d2
-// (occ read only then). Any 1 <= k < n; the wrapper sends k | n.
-extern "C" int vt_flood_step_pipe(const void* seed, const void* occ,
-                                  const void* org, void* out, int n, int k,
-                                  int emit_sdf, void* stream) {
-  const int tiles = ((n + kCols - 1) / kCols) * ((n + kRows - 1) / kRows);
-  const int walks = ((n + k - 1) / k + kPipeWalk - 1) / kPipeWalk;
-  const size_t smem =
-      3 * (size_t)window_len(kRows, k) * window_len(kCols, k) * sizeof(float4);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flood_step_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  flood_step_pipe_kernel<<<dim3(tiles, k, walks), kRows * kCols, smem,
-                           (cudaStream_t)stream>>>(
-      (const int*)seed, (const unsigned char*)occ, (const float*)org, out, n,
-      k, emit_sdf);
-  return (int)cudaGetLastError();
+// B6: B3's walk at (n, k) with `_walk_geometry(n, k, n)`; out is int32
+// seeds, or with emit_sdf float32 sign(occ) * d2 (occ read only then).
+// Any 1 <= k < n; the wrapper sends k | n.
+extern "C" int vt_flood_step_pipe(const void* seed, const void* occ, const void* org,
+                                  void* out, int n, int k, int emit_sdf, int mr_shift,
+                                  int chunks, int groups, int walks, int cols,
+                                  int x_groups, int gx, int gy, int gz, int smem,
+                                  void* stream) {
+  const WalkGeom g{n, k, n, mr_shift, chunks, groups, walks, cols, x_groups};
+  if (emit_sdf)
+    return launch_walk(flood_sdf_kernel, seed, occ, out, org, g, gx, gy, gz, smem, stream);
+  return launch_walk(flood_step_kernel, seed, nullptr, out, org, g, gx, gy, gz, smem, stream);
 }
 
 extern "C" int vt_sdf_from_seed(const void* seed, const void* occ,

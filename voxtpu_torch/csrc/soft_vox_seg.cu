@@ -47,12 +47,21 @@
 // (p0 - 64) / 128) and its carry row, so no global atomics; unvisited
 // blocks keep the wrapper's zeros.
 //
-// B10: one thread per voxel of the dense (z, y, x) grid:
+// B10: the dense (z, y, x) grid,
 //   out = (A[j][l] + B') + pre[x / 64],  j = x / 128, l = x % 128,
 // with B' = B[j - 1][l + 64] for l < 64 (0 for j = 0) and B[j][l - 64]
 // otherwise: voxtpu's combine, the same association, so bitwise equal
 // to the plain version (adds only; the library is built with
-// -fmad=false).
+// -fmad=false). It moves bytes: A and B read once, the grid written
+// once (12 bytes a voxel; pre is 1/64 of that). A block takes one
+// (tile t, panel j) and 32 of its cells, a warp a cell row at a time, a
+// lane four columns as float4s: A's row (t, j, c) is 512 contiguous
+// bytes, B' the upper half of B's row (t, j - 1, c) for lanes 0-15 and
+// the lower half of (t, j, c) for lanes 16-31 (16-byte aligned: 64
+// floats), pre one value a half warp, and the grid's row (z, y) of the
+// panel 512 contiguous bytes. The block divides once for (t, j, cells)
+// and its 64-bit bases; per element only 32-bit offsets are added, so
+// no 64-bit division a voxel (the C entry checks that they fit).
 //
 // B11: B8's structure over the panel: one block per batch (one tile,
 // one panel); a thread a slot rebuilds its fragment and clipped window;
@@ -81,7 +90,8 @@
 // the zeroed family arrays (2 x 537 MB at n = 512, written by the
 // wrapper); B11's ~47 in-panel prefix columns a slot and its per-slot
 // rebuild and chain rule. B10 moves bytes: reads A, B and the carry
-// prefix, writes the grid.
+// prefix, writes the grid; its loads are issued for a warp's four cell
+// rows before any add.
 //
 // tests/test_torch_seg_emulated.py runs this file on the host through
 // tests/emulation.py (see soft_vox.cu's note on the rewritten lines).
@@ -95,7 +105,9 @@ constexpr int kLattice = 64;  // panel placement granularity
 constexpr int kHalf = kScanCols;  // columns per B9 accumulation block
 constexpr int kThreads = 256;     // B9's record pass, B11
 constexpr int kFwdThreads = 512;  // B9's accumulation: 16 warps at 3 blocks an SM
-constexpr int kCombineThreads = 256;
+constexpr int kCombineWarps = 8;  // B10: a cell row of one panel a warp at a time
+constexpr int kCombineRounds = 4;
+constexpr int kCombineCells = kCombineWarps * kCombineRounds;  // cells a block
 static_assert(kPanel == 2 * kHalf, "a panel is two B9 halves");
 
 // The cell centre of local cell c of square tile `tile`.
@@ -181,30 +193,57 @@ __global__ void seg_accumulate_kernel(const int4* __restrict__ rec,
 // B10: the combine.
 // ---------------------------------------------------------------------
 
-// One thread per voxel.
-__global__ void seg_combine_kernel(const float* __restrict__ a,
-                                   const float* __restrict__ b,
-                                   const float* __restrict__ pre, int n, int tc,
-                                   int tz, float* __restrict__ out) {
-  const long long nn = (long long)n * n;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nn * n) return;
-  const int x = (int)(i % n);
-  const int y = (int)((i / n) % n);
-  const int z = (int)(i / nn);
+// Grid (num_tiles * nj * groups), kCombineWarps warps: block (t, j,
+// group) computes panel j of cells [32 * group, 32 * group + 32) of tile
+// t; lane L columns 4L .. 4L + 3 of the panel.
+__global__ void __launch_bounds__(kCombineWarps * 32)
+    seg_combine_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       const float* __restrict__ pre, int n, int tc, int tz,
+                       float* __restrict__ out) {
+  const int groups = (tc + kCombineCells - 1) / kCombineCells;
+  const int nj = n / kPanel;
+  const int group = blockIdx.x % groups;
+  const int j = blockIdx.x / groups % nj;
+  const int t = blockIdx.x / groups / nj;
   const int ty = tc / tz;
-  const int t = (z / tz) * (n / ty) + y / ty;
-  const int c = (z % tz) * ty + y % ty;
-  const int j = x / kPanel;
-  const int l = x % kPanel;
-  const long long row = ((long long)t * (n / kPanel) + j) * tc + c;
-  float bv = 0.0f;
-  if (l >= kLattice)
-    bv = b[row * kPanel + (l - kLattice)];
-  else if (j > 0)
-    bv = b[(row - tc) * kPanel + (l + kLattice)];
-  const float pv = pre[((long long)t * (n / kLattice) + x / kLattice) * tc + c];
-  out[i] = __fadd_rn(__fadd_rn(a[row * kPanel + l], bv), pv);
+  const int tz0 = t / (n / ty) * tz, ty0 = t % (n / ty) * ty;  // the tile's first cell
+  // 64-bit bases, once a block: A's and B's row (t, j, 0), pre's (t, 2j,
+  // 0), the grid's (tz0, ty0) at column 128j.
+  const long long row = ((long long)t * nj + j) * tc;
+  const float* a_t = a + row * kPanel;
+  const float* b_t = b + row * kPanel;
+  const float* pre_t = pre + ((long long)t * (n / kLattice) + 2 * j) * tc;
+  float* out_t = out + ((long long)tz0 * n + ty0) * n + j * kPanel;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int l = 4 * lane;
+  const bool low = l < kLattice;  // B' from panel j - 1 (none at j = 0)
+  const bool b_none = low && j == 0;
+  const int b_off = low ? l + kLattice - tc * kPanel : l - kLattice;
+  const int p_off = low ? 0 : tc;  // group 2j or 2j + 1
+  float4 av[kCombineRounds], bv[kCombineRounds];
+  float pv[kCombineRounds];
+  int dst[kCombineRounds];
+#pragma unroll
+  for (int i = 0; i < kCombineRounds; ++i) {
+    const int c = group * kCombineCells + i * kCombineWarps + warp;
+    dst[i] = -1;
+    if (c >= tc) continue;  // uniform in the warp
+    const int cz = c / ty;
+    dst[i] = (cz * n + c - cz * ty) * n + l;
+    av[i] = *(const float4*)(a_t + c * kPanel + l);
+    bv[i] = b_none ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                   : *(const float4*)(b_t + c * kPanel + b_off);
+    pv[i] = pre_t[p_off + c];
+  }
+#pragma unroll
+  for (int i = 0; i < kCombineRounds; ++i) {
+    if (dst[i] < 0) continue;
+    const float p = pv[i];
+    *(float4*)(out_t + dst[i]) = make_float4(__fadd_rn(__fadd_rn(av[i].x, bv[i].x), p),
+                                             __fadd_rn(__fadd_rn(av[i].y, bv[i].y), p),
+                                             __fadd_rn(__fadd_rn(av[i].z, bv[i].z), p),
+                                             __fadd_rn(__fadd_rn(av[i].w, bv[i].w), p));
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -384,14 +423,22 @@ extern "C" int vt_seg_fwd(const void* tables, const void* cells, const void* tbl
 }
 
 // B10: out_a, out_b and the carry prefix pre (num_tiles, n / 64, tc) ->
-// the dense (n, n, n) grid.
+// the dense (n, n, n) grid. Refuses (cudaErrorInvalidValue) a geometry
+// the kernel does not take: n not a multiple of 128, tz not dividing tc
+// and n, tc / tz not dividing n, a tile's cell offsets beyond 32 bits,
+// or an out_a, out_b or out not 16-byte aligned.
 extern "C" int vt_seg_combine(const void* out_a, const void* out_b, const void* pre,
                               int n, int tc, int tz, void* out, void* stream) {
-  const long long total = (long long)n * n * n;
-  const unsigned int blocks = (unsigned int)((total + kCombineThreads - 1) / kCombineThreads);
-  seg_combine_kernel<<<blocks, kCombineThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)out_a, (const float*)out_b, (const float*)pre, n, tc, tz,
-      (float*)out);
+  const auto misaligned = [](const void* p) { return ((unsigned long long)p & 15) != 0; };
+  if (n < kPanel || n % kPanel || tz < 1 || tc < tz || tc % tz || n % tz ||
+      n % (tc / tz) || (long long)tz * n * n >= (1ll << 31) ||
+      misaligned(out_a) || misaligned(out_b) || misaligned(out))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)n / (tc / tz) * (n / tz) * (n / kPanel) *
+                           ((tc + kCombineCells - 1) / kCombineCells);
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  seg_combine_kernel<<<(unsigned)blocks, kCombineWarps * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)out_a, (const float*)out_b, (const float*)pre, n, tc, tz, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -12,17 +12,19 @@ stride k = N/2 ... 1, then the signed distance pass, up to N = 1024
   row bands of `ROW_BAND` = 256 rows (voxtpu's default H; the port
   reads no `JFA_YBLOCK`). Its result is bitwise B3's at every k; any
   n and band height, no divisibility needed.
-- B3 and B4 are one lattice walk (`csrc/jfa.cu::flood_walk`): a block
-  of 8 x 32 threads covers 32 columns, rows of a few residue classes
-  y mod k (for B4 within one band) and walks kWalk planes of one
-  residue class z mod k, each seed staged once as world coordinates.
-  `_walk_geometry` computes its launch (lattice, grid, shared bytes).
+- B3, B4 and B6 are one lattice walk (`csrc/jfa.cu::flood_walk`): a
+  block of 8 x 32 threads covers 32 columns, rows of a few residue
+  classes y mod k (for B4 within one band) and walks kWalk planes of
+  one residue class z mod k, each seed staged once as world
+  coordinates. `_walk_geometry` computes its launch (lattice, grid,
+  shared bytes).
 - B5 `sdf_from_seed` replaces `_final_kernel`
   (`csrc/jfa.cu::vt_sdf_from_seed`).
 - B6 `flood_step_pipe` replaces `_pipe_kernel`
-  (`csrc/jfa.cu::vt_flood_step_pipe`): B3's step for k | n, each seed
-  unpacked once into world coordinates; with `occ` the step emits the
-  signed distance (B5 fused in). `pipe=True` (voxtpu's `JFA_PIPE=1`)
+  (`csrc/jfa.cu::vt_flood_step_pipe`), the walk's third entry: B3's
+  step for k | n; with `occ` the walk's write-out stores the signed
+  distance of the chosen seed instead (B5 fused in, bitwise B5 after
+  B3). `pipe=True` (voxtpu's `JFA_PIPE=1`)
   routes as `_jfa_pallas` does for N <= 512: B6 at the strides k >= 2
   that divide N, B3 at the others, and B6 with the signed distance at
   k = 1, so B5 does not run. Above 512 `pipe` changes nothing (B4, then
@@ -363,7 +365,8 @@ def flood_step_pipe(seed: torch.Tensor, org: torch.Tensor, k: int,
     out = torch.empty(seed.shape, dtype=dtype, device=seed.device)
     _build.launch("vt_flood_step_pipe", seed.data_ptr(),
                   0 if occ is None else occ.data_ptr(), org.data_ptr(),
-                  out.data_ptr(), n, k, int(occ is not None), _build.stream_of(out))
+                  out.data_ptr(), n, k, int(occ is not None),
+                  *_walk_geometry(n, k, n).args(), _build.stream_of(out))
     flood_step_pipe.launches += 1
     return out
 
