@@ -30,7 +30,10 @@ and no result line:
    (xor popcount 0) and the SDF the plain flood (bitwise, inf == inf);
    every B3 step of the flood must equal its plain version and B4 in
    bands of 256 and 100. Then each kernel is timed beside its plain version at these shapes
-   (CUDA events, warm, median of 5). The washers' wide slots are all
+   (CUDA events, warm, median of 5 single calls); B1, B2 and B5 also as
+   the device time a launch over a run of back-to-back launches
+   (`device_ms`: a single call's time also holds the wrapper's host
+   work, which the card waits for). The washers' wide slots are all
    inert (an x-parallel cap covers no cell centre), so B2 is also timed
    on random live slots of the same shape and tiles. Then, while the
    folded grid is live, `jfa(grid, backend="cuda", pipe=True)` (voxtpu's
@@ -46,16 +49,18 @@ and no result line:
    and 1024^3, `voxelize(backend="word_event")` on a WordEventVoxPlan
    and DeviceVoxPipeline.words() must each equal the banded pipeline's
    grid (xor popcount 0, overflow 0) and launch B12, which is held
-   against its plain version at full size; events, batches, plan build
+   against its plain version at full size and timed on washer_a at both
+   sizes (a single call and `device_ms`); events, batches, plan build
    times and the per-call totals of DeviceVoxPipeline.words() and of
    the banded pipeline (CUDA events, warm, median of 5) are printed.
    `jfa()` on the union of the two 1024^3 grids must run B4 (row-band
    flood step) and not B3, and equal a B3 chain bitwise; B4 is held
    against B3 and against its band-wise plain version at every stride,
-   and B4 and B3 are timed per step. `voxelize_wq` on a WorkQueueVoxPlan
+   and B4 and B3 are timed per step; B5 on the chain's seeds is timed at
+   1024^3 (a single call and `device_ms`). `voxelize_wq` on a WorkQueueVoxPlan
    of the same fragments must equal the banded grid at 512^3 and 1024^3
    on each washer and launch B14 once a call; B14 is held against its
-   plain version there and timed on washer_a at 512^3; at 2048^3 on
+   plain version there and timed on washer_a at 512^3 (both ways); at 2048^3 on
    washer_a (a 1.07 GB grid) it must equal `resolve_fragments` on the
    same fragments, and is timed. Last, the CLI with -t 1 (the plain
    route) on the card at n=128 on two small washers must equal -t 2:
@@ -108,7 +113,9 @@ and no result line:
    hard IoU.
 8. Prints each kernel's largest error as a share of its limit, the
    card's name and power limit, the kernel table as one JSON line (each
-   kernel's launches, error, time, plain time and bound: the larger of
+   kernel's launches, error, time (`ms`, a single call), `device_ms` (a
+   launch in a run, for B1, B2, B5, B12, B14; null for the others),
+   plain time and bound: the larger of
    its bytes over the memory rate and its operations over their peak
    rate, counted from this run's inputs; `bound`; a soft kernel's
    sigmoids counted over its slots' transition windows only, clipped to
@@ -217,6 +224,42 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, launches: int = 50, runs: int = 3) -> float:
+    """Device time of one fn() in ms: a run of `launches` back-to-back
+    calls between one pair of CUDA events, over the count (the median of
+    `runs` runs), after one warm-up. The stream first sleeps until the
+    host has queued the whole run, so the card never waits for the host
+    inside it; `cuda_ms`'s single call holds that wait too. A run whose
+    start event had passed before the host finished queueing is taken
+    again behind a longer sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    torch.cuda.synchronize()
+    sleep_s = 2 * (time.perf_counter() - t0)  # the host's time for a run, and the card's
+    means = []
+    while len(means) < runs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * 2e9))  # clock cycles, at most ~2 GHz
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        waited = start.query()  # the card reached the run before its last launch was queued
+        end.synchronize()
+        if waited:
+            require(sleep_s < 1.0, "device_ms: the host cannot queue a run ahead of the card")
+            sleep_s *= 2
+            continue
+        means.append(start.elapsed_time(end) / launches)
+    return sorted(means)[len(means) // 2]
 
 
 def bound(nbytes: float, flops: float = 0.0, sfu: float = 0.0, unfused: float = 0.0,
@@ -1251,7 +1294,10 @@ def wq_route(errs, timings, bounds, mesh, spec, frag_plan, want, timed: bool) ->
         if timed:
             timings["B14"] = (cuda_ms(lambda: B14(*args, n=n, tc=plan.tc)),
                               cuda_ms(lambda: Q.wq_fill_plain(*args, n=n, tc=plan.tc)))
+            timings["B14", "device"] = device_ms(lambda: B14(*args, n=n, tc=plan.tc))
             bounds["B14"] = bound(nbytes(*args) + n ** 3 // 8)
+            print(f"B14 at {n}^3 on {mesh.name}: {timings['B14'][0]:.4f} ms a single call, "
+                  f"{timings['B14', 'device']:.4f} ms a launch in a run")
     print(f"{mesh.name} {n}^3 work queue: {plan.num_fragments:,} fragments on "
           f"{plan.num_active:,} active tiles, {plan.cells2d.shape[0]:,} lane rows; "
           f"WorkQueueVoxPlan {built:.2f} s; equal to the banded grid and B14's plain "
@@ -1347,11 +1393,18 @@ def word_event_route(dev, errs, timings, bounds, meshes):
                 require(torch.equal(got, plain), f"B12 differs from plain at {n}^3")
                 del got, plain
                 pipe_ms, banded_ms = cuda_ms(pipe.words), cuda_ms(banded.words)
+                if mesh is meshes[0]:
+                    single = cuda_ms(lambda: B12(*args, n=n, tc=plan.tc))
+                    run_ms = device_ms(lambda: B12(*args, n=n, tc=plan.tc))
+                    b12_bound = bound(nbytes(*args) + n ** 3 // 8)
+                    print(f"B12 at {n}^3 on {mesh.name}: {single:.4f} ms a single call, "
+                          f"{run_ms:.4f} ms a launch in a run, bound {b12_bound[0]:.4f} ms "
+                          f"({b12_bound[1]})")
                 if n == MAIN_N and mesh is meshes[0]:
                     timings["B12"] = (
-                        cuda_ms(lambda: B12(*args, n=n, tc=plan.tc)),
-                        cuda_ms(lambda: W.word_event_fill_plain(*args, n=n, tc=plan.tc)))
-                    bounds["B12"] = bound(nbytes(*args) + n ** 3 // 8)
+                        single, cuda_ms(lambda: W.word_event_fill_plain(*args, n=n, tc=plan.tc)))
+                    timings["B12", "device"] = run_ms
+                    bounds["B12"] = b12_bound
             print(f"{mesh.name} {n}^3: {plan.num_fragments:,} candidates, "
                   f"{pipe.num_valid:,} fragments, {plan.num_events:,} events in "
                   f"{plan.num_batches:,} batches (b_max {pipe.b_max}, cap_f {pipe.cap_f:,}); "
@@ -1424,7 +1477,13 @@ def jfa_rows(dev, errs, timings, bounds, words, spec):
             seed = nxt
             k //= 2
         chain = B5(seed, occ, org)
-    require(bitwise_equal(sdf, chain), f"jfa() at {n}^3 differs from the B3 chain")
+        require(bitwise_equal(sdf, chain), f"jfa() at {n}^3 differs from the B3 chain")
+        b5_single = cuda_ms(lambda: B5(seed, occ, org))
+        b5_run = device_ms(lambda: B5(seed, occ, org), launches=20)
+    b5_bytes = nbytes(seed, occ, org) + 4 * n ** 3
+    print(f"B5 at {n}^3: {b5_single:.4f} ms a single call, {b5_run:.4f} ms a launch in a "
+          f"run, bound {bound(b5_bytes)[0]:.4f} ms (bytes: {b5_bytes / 1e9:.3f} GB); "
+          f"{b5_bytes / b5_run / 1e9:.3f} TB/s in a run")
     finite = float(torch.isfinite(sdf).float().mean())
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     timings["B4"] = (mean(b4_ms), mean(plain_ms))
@@ -1781,9 +1840,20 @@ def run() -> int:
             "B5": bound(nbytes(final_seed, occ, org) + 4 * n3,
                         7 * n3 + 14 * int((final_seed >= 0).sum())),
         }
-        for name, (ms, plain_ms) in timings.items():
-            print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
+        timings["B1", "device"] = device_ms(
+            lambda: B1(lk, xs, st.batch_tile, st.batch_basew, **kw))
+        timings["B2", "device"] = device_ms(lambda: B2(wk, wxs, w_ctile, **wkw))
+        timings["B5", "device"] = device_ms(lambda: B5(final_seed, occ, org), launches=20)
+        for name in ("B1", "B2", "B3", "B5"):
+            (ms, plain_ms), dev_ms = timings[name], timings.get((name, "device"))
+            print(f"{name}: kernel {ms:.4f} ms" + (
+                "" if dev_ms is None else f" a single call, {dev_ms:.4f} ms a launch in a run")
+                + f", plain {plain_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                f"({bounds[name][1]})")
+        b5_bytes = nbytes(final_seed, occ, org) + 4 * n3
+        print(f"B5 moves {b5_bytes / 1e9:.3f} GB: {b5_bytes / timings['B5'][0] / 1e9:.3f} "
+              f"TB/s a single call, {b5_bytes / timings['B5', 'device'] / 1e9:.3f} TB/s in "
+              "a run")
         g = torch.Generator().manual_seed(11)
         live_k = torch.randint(0, p0.tc, tuple(wk.shape), generator=g,
                                dtype=torch.int32).to(dev)
@@ -1794,10 +1864,12 @@ def run() -> int:
         errs["B2"] = max(errs["B2"], int_err(got, want))
         require(torch.equal(got, want), "B2 differs from plain on live slots (main shape)")
         live_ms = cuda_ms(lambda: B2(live_k, live_xs, w_ctile, **wkw))
+        live_dev_ms = device_ms(lambda: B2(live_k, live_xs, w_ctile, **wkw))
         live_plain_ms = cuda_ms(lambda: vox_cuda.wide_fill_plain(
             live_k, live_xs, w_ctile, **wkw))
-        print(f"B2 on live random slots of the same shape: kernel {live_ms:.4f} ms, "
-              f"plain {live_plain_ms:.4f} ms, equal")
+        print(f"B2 on live random slots of the same shape: kernel {live_ms:.4f} ms a "
+              f"single call, {live_dev_ms:.4f} ms a launch in a run, plain "
+              f"{live_plain_ms:.4f} ms, equal")
         print(f"shapes: B1 {tuple(lk.shape)} slots, B2 {tuple(wk.shape)} slots on "
               f"{w_uidx.shape[0]} tiles, B3 per step (mean of k={MAIN_N // 2}..1; every step "
               f"equal to its plain version and to B4 in bands of {jfa_cuda.ROW_BAND} and 100), "
@@ -1890,7 +1962,8 @@ def run() -> int:
         bound_ms, bound_by = bounds[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                        "max_abs_err": errs[key], "ms": ms,
+                        "device_ms": timings.get((key, "device")), "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
     print("largest max_abs_err / limit of any check: " + ", ".join(

@@ -1,6 +1,6 @@
-// A host emulation of the CUDA features that csrc/jfa.cu,
-// csrc/jfa_probe.cu and csrc/soft_vox.cu use, for
-// tests/test_torch_flood_emulated.py and tests/test_torch_soft_emulated.py.
+// A host emulation of the CUDA features that the csrc sources run on
+// the host use (csrc/jfa.cu, jfa_probe.cu, soft_vox.cu, soft_vox_seg.cu,
+// vox_we.cu), for the tests/test_torch_*_emulated.py tests.
 //
 // A launch runs its blocks one after another; a block's threads run as
 // host threads, so that __syncthreads, __syncthreads_or and __any_sync
@@ -41,13 +41,19 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
   cudaErrorInvalidConfiguration = 9,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+  cudaSharedmemCarveoutMaxShared = 100
 };
 using std::fmaxf;
 using std::fminf;
@@ -66,11 +72,33 @@ inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; 
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline long long __float2ll_rn(float f) { return std::llrintf(f); }  // nearest, ties to even
 inline float __ll2float_rn(long long v) { return (float)v; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// Streaming loads and stores: plain ones on the host, which also
+// report an address the card would fault on (not a multiple of the
+// access's size) as cudaErrorMisalignedAddress from the launch.
+inline std::atomic<int> emu_error{0};
+template <typename T>
+inline void emu_check_aligned(const T* p) {
+  if (reinterpret_cast<std::uintptr_t>(p) % sizeof(T)) emu_error = 716;
+}
+template <typename T>
+inline T __ldcs(const T* p) {
+  emu_check_aligned(p);
+  return *p;
+}
+template <typename T>
+inline void __stcs(T* p, T v) {
+  emu_check_aligned(p);
+  *p = v;
+}
 
 template <typename T>
 inline T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_or(v);
+}
+inline unsigned atomicXor(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_xor(v);
 }
 inline int atomicMin(int* p, int v) {
   std::atomic_ref<int> a(*p);
@@ -161,12 +189,7 @@ inline void emu_wait(int pending) {
   }
 }
 
-inline int emu_error = 0;
-inline int cudaGetLastError() {
-  const int e = emu_error;
-  emu_error = 0;
-  return e;
-}
+inline int cudaGetLastError() { return emu_error.exchange(0); }
 template <typename K>
 inline int cudaFuncSetAttribute(K, int, int) { return 0; }
 

@@ -103,6 +103,41 @@ def test_flood_kernels_match_plain_and_oracle(dev, n):
     assert torch.equal(jfa(occ_d, spec).cpu().view(torch.int32), ref.view(torch.int32))
 
 
+# n = 128: every row starts on a 16-byte boundary; 130 and 67: rows
+# that do not (n % 4 = 2, 3), whose ends B5 takes one by one.
+@pytest.mark.parametrize("n,kind", [(128, "sparse"), (128, "ties"), (130, "dense"),
+                                    (67, "sparse"), (67, "empty"), (67, "full")])
+def test_sdf_kernel_matches_plain_and_fused_step(dev, n, kind):
+    """B5 on a flood's seeds, float32 bits: its plain version and B6's
+    fused k = 1 step on the same seeds (B5 after B3); "full": every voxel
+    occupied and no seed, +inf everywhere. A seed grid off the 16-byte
+    alignment is refused."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    p = {"sparse": 0.01, "dense": 0.3, "ties": 0.03, "empty": 0.0, "full": 1.0}[kind]
+    occ = torch.rand((n, n, n), generator=g, device=dev) < p
+    spec = GridSpec(n=n, **(_DYADIC if kind == "ties" else _OTHER))
+    org = jfa_cuda.org_tensor(spec, dev)
+    seed = torch.full_like(occ, -1, dtype=torch.int32) if kind == "full" else jfa_init_seed(occ)
+    k = n // 2
+    while k >= 2:
+        seed = jfa_cuda.flood_step(seed, org, k)
+        k //= 2
+    final = jfa_cuda.flood_step(seed, org, 1)
+    before = jfa_cuda.sdf_from_seed.launches
+    got = jfa_cuda.sdf_from_seed(final, occ, org)
+    assert jfa_cuda.sdf_from_seed.launches == before + 1
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, jfa_cuda.sdf_from_seed_plain(final, occ, org).view(torch.int32))
+    assert torch.equal(bits, jfa_cuda.flood_step_pipe(seed, org, 1, occ).view(torch.int32))
+    if kind in ("empty", "full"):
+        assert torch.equal(got, torch.full_like(got, float("inf") if kind == "full"
+                                                else -float("inf")))
+    off = torch.empty(n ** 3 + 1, dtype=torch.int32, device=dev)[1:].view(n, n, n)
+    off.copy_(final)
+    with pytest.raises(RuntimeError, match="vt_sdf_from_seed"):
+        jfa_cuda.sdf_from_seed(off, occ, org)
+
+
 # The flood grids of the walk's tests: sparse (~1%) and dense (~30%)
 # random occupancy, none, one voxel, and ~3% on a dyadic grid, where the
 # distances are exact and many seeds lie exactly as far from a voxel as
@@ -175,7 +210,7 @@ def _we_args(plan):
 
 
 @pytest.mark.parametrize("n,tc,tb_sub", [(96, 128, 4), (128, 128, 4), (128, 64, 1),
-                                         (256, 128, 4)])
+                                         (256, 128, 4), (64, 64, 1)])
 def test_word_event_kernel_matches_plain_and_oracle(dev, n, tc, tb_sub):
     """B12 on an icosphere's word-event plan (n = 96: G = 36, not a
     power of two), against its plain version and the oracle; and the

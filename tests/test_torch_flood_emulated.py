@@ -13,7 +13,11 @@ through their C entry points with the wrappers' own launch geometry
 stride; B6's fused k = 1 step (emit_sdf) against `sdf_from_seed_plain`
 after `flood_step_plain`, float32 bitwise. The dyadic grids make many seeds exactly equidistant,
 so the candidate order and the own seed's precedence on ties are
-tested. Skips where no C++20 compiler is installed.
+tested. B5 (`vt_sdf_from_seed`, 4 voxels a thread as 16-byte vectors,
+the unaligned ends of rows one by one) against `sdf_from_seed_plain`,
+float32 bits compared (so -0 and +0 differ), at n = 32, 36 (9 vectors a
+row), 35 and 66 (rows that start off a 16-byte boundary). Skips where
+no C++20 compiler is installed.
 """
 
 import ctypes
@@ -41,7 +45,7 @@ def lib(tmp_path_factory):
                             ["jfa.cu", "jfa_probe.cu"], "flood_emulated")
     library = ctypes.CDLL(str(so))
     for entry in ("vt_flood_step", "vt_flood_step_rows", "vt_flood_step_pipe",
-                  "vt_flood_probe"):
+                  "vt_flood_probe", "vt_sdf_from_seed"):
         getattr(library, entry).argtypes = _build.SIGNATURES[entry]
     return library
 
@@ -155,3 +159,69 @@ def test_fused_sdf_step_source_is_b5_after_b3(lib, n, kind):
         assert torch.equal(got, torch.full_like(got, -float("inf")))
     else:
         assert bool(torch.isfinite(got).all())
+
+
+def _b5(lib, seed, occ, org, shift=0):
+    """B5 through its C entry -> (error code, float32 out); `shift`
+    offsets the seed pointer by that many bytes."""
+    out = torch.full(seed.shape, float("nan"), dtype=torch.float32)
+    err = lib.vt_sdf_from_seed(seed.data_ptr() + shift, occ.data_ptr(), org.data_ptr(),
+                               out.data_ptr(), seed.shape[0], None)
+    return err, out
+
+
+def _sdf_case(kind, n):
+    """(seed, occ, org): the plain flood's seeds of the grid kinds above;
+    "random": packed seeds with random fields, a fifth -1, on random
+    occupancy (seeds at their own voxel give +-0); "full": every voxel
+    occupied and no seed (+inf everywhere)."""
+    if kind == "full":
+        return (torch.full((n, n, n), -1, dtype=torch.int32), torch.ones((n, n, n), dtype=torch.bool),
+                J.org_tensor(GridSpec(n=n, **OTHER), "cpu"))
+    if kind == "random":
+        rng = np.random.default_rng(n + 1)
+        f = rng.integers(0, n, (3, n, n, n))
+        seed = np.where(rng.random((n, n, n)) < 0.2, -1, f[2] << 20 | f[1] << 10 | f[0])
+        own = np.arange(n ** 3).reshape(n, n, n)
+        pick = rng.random((n, n, n)) < 0.1  # a voxel's own seed: d2 = 0
+        own_seed = (own // (n * n)) << 20 | (own // n % n) << 10 | own % n
+        seed = np.where(pick, own_seed, seed).astype(np.int32)
+        occ = torch.from_numpy(rng.random((n, n, n)) < 0.5)
+        return torch.from_numpy(seed), occ, J.org_tensor(GridSpec(n=n, **DYADIC), "cpu")
+    occ, org = _occupancy(kind, n)
+    seed = jfa_init_seed(occ)
+    k = n // 2
+    while k >= 1:
+        seed = J.flood_step_plain(seed, org, k)
+        k //= 2
+    return seed, occ, org
+
+
+@pytest.mark.parametrize("n,kind", [
+    (32, "sparse"), (32, "dense"), (32, "empty"), (32, "ties"), (36, "ties"), (36, "full"),
+    (35, "random"), (66, "sparse"), (66, "random"),
+])
+def test_sdf_source_is_bitwise_plain(lib, n, kind):
+    """B5 from `csrc/jfa.cu` against `sdf_from_seed_plain`, float32 bits;
+    every voxel written (the output starts as NaN)."""
+    seed, occ, org = _sdf_case(kind, n)
+    err, got = _b5(lib, seed, occ, org)
+    assert err == 0
+    want = J.sdf_from_seed_plain(seed, occ, org)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if kind == "empty":
+        assert torch.equal(got, torch.full_like(got, -float("inf")))
+    if kind == "full":
+        assert torch.equal(got, torch.full_like(got, float("inf")))
+    if kind == "random":
+        zeros = got == 0
+        assert bool(torch.signbit(got[zeros]).any()) and bool((~torch.signbit(got[zeros])).any())
+
+
+def test_sdf_entry_refuses_misaligned_arrays(lib):
+    """B5 reads seeds as 16-byte vectors: a seed pointer off that
+    alignment is refused, and nothing is written."""
+    seed, occ, org = _sdf_case("sparse", 32)
+    err, got = _b5(lib, seed, occ, org, shift=4)
+    assert err != 0
+    assert bool(torch.isnan(got).all())

@@ -4,7 +4,8 @@
 //   B3  _step_kernel           (vt_flood_step): one flood step at stride k
 //   B4  _step_kernel_yblocked  (vt_flood_step_rows): the same step in
 //                              (1, H, n) row bands, for 512 < N <= 1024
-//   B5  _final_kernel          (vt_sdf_from_seed): signed squared distance
+//   B5  _final_kernel          (vt_sdf_from_seed): signed squared distance,
+//                              one 16-byte stream of 4 voxels a thread
 //   B6  _pipe_kernel           (vt_flood_step_pipe): B3 at a stride k | n,
 //                              the walk's third entry; at k = 1 optionally
 //                              with B5 fused into its write-out (JFA_PIPE=1)
@@ -84,6 +85,19 @@
 // B6 is the walk at a stride k | n (voxtpu's residue walk), and at k = 1
 // with emit_sdf the walk whose write-out stores the signed distance of
 // the chosen seed: B5 fused in, bitwise (see flood_sdf_kernel).
+//
+// B5 is a stream: per voxel sign(occ) * d2 of its seed, 9 bytes (seed 4,
+// occ 1, out 4) and no reuse, so its bound is bytes: 1.21 GB at 512^3,
+// 0.36 ms at 3.35 TB/s, and 2.88 ms at 1024^3 (NVIDIA H100 80GB HBM3,
+// 700 W). A warp takes a stretch of one row, a thread 4 voxels: one
+// int4 of seeds, one 32-bit word of occ bytes and one float4 out, the
+// store streamed (st.global.cs). No 64-bit index or division by n: the
+// grid is (x groups, row groups, plane), and py, pz are computed once a
+// row. Seed fields and columns become floats exactly by 2^23 + f - 2^23
+// (field_f) at the float rate, not by int-to-float conversions at 16 a
+// clock an SM; the distance is B6's fused write-out (signed_d2), so the
+// roundings are seed_d2's. Rows that do not start on a 16-byte boundary
+// (n % 4 != 0) take their first and last voxels one by one.
 
 // Two tools match this file's text. tests/test_torch_flood_emulated.py
 // runs it on the host by rewriting the cuda_runtime.h include, each
@@ -434,7 +448,8 @@ __global__ void __launch_bounds__(kTileX* kTileY, 3)
 // Why the fused write-out is B5 after B3 bit for bit: prev_d2 is the
 // chosen seed's distance, dist_z(dist_xy(w, px, py), w, pz) of
 // unpack_world's floats. Those are seed_d2 / packed_d2's floats
-// (jfa_common.cuh), which B5 evaluates, in the same association: the
+// (jfa_common.cuh), in the same association, and B5 evaluates the same
+// function (signed_d2) on them: the
 // fields exactly (field_f is (float)f), ox + f*vs, px - sx and the
 // squares each rounded on their own, (dx^2 + dy^2) + dz^2; px, py, pz as
 // B5 computes them. `take` keeps d2 with fminf and the own seed's `<=`
@@ -450,29 +465,64 @@ __global__ void __launch_bounds__(kTileX* kTileY, 3)
   flood_walk<false, true>(seed, occ, out, org, g);
 }
 
-__global__ void sdf_from_seed_kernel(const int* __restrict__ seed,
-                                     const unsigned char* __restrict__ occ,
-                                     const float* __restrict__ org,
-                                     float* __restrict__ out, int n) {
-  const long long nn = (long long)n * n;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nn * n) return;
-  const int x = (int)(i % n);
-  const int y = (int)((i / n) % n);
-  const int z = (int)(i / nn);
-  const float ox = org[0], oy = org[1], oz = org[2], vs = org[3];
-  const float px = __fadd_rn(ox, __fmul_rn((float)x, vs));
-  const float py = __fadd_rn(oy, __fmul_rn((float)y, vs));
-  const float pz = __fadd_rn(oz, __fmul_rn((float)z, vs));
-  const float sign = occ[i] ? 1.0f : -1.0f;
-  out[i] = __fmul_rn(sign, seed_d2(seed[i], px, py, pz, ox, oy, oz, vs));
+// B5. Grid (x groups, ceil(n / kSdfRows), n), kTileX x kSdfRows
+// threads: a warp a stretch of one row of plane blockIdx.z, a thread 4
+// consecutive voxels from the row's first 16-byte boundary (one int4 of
+// seeds, one 32-bit word of 4 occ bytes, one float4 out, streamed past
+// the caches: each byte is used once). The thread past the row's last
+// vector, j == vecs, takes the voxels before that boundary and after
+// the last vector one by one (n % 4 != 0; none otherwise).
+constexpr int kSdfRows = 8;
+
+// sign(occ) * d2 of one voxel, B6's fused write-out: unpack_world's
+// floats, (px - sx)^2 + (py - sy)^2, then + (pz - sz)^2 (+inf without a
+// seed), times +-1.
+__device__ __forceinline__ float signed_d2(int s, unsigned o, float px, float py,
+                                           float pz, float ox, float oy, float oz,
+                                           float vs) {
+  const float4 w = unpack_world(s, ox, oy, oz, vs);
+  return __fmul_rn(o ? 1.0f : -1.0f, dist_z(dist_xy(w, px, py), w, pz));
 }
 
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(int n) {
-  const long long total = (long long)n * n * n;
-  return (unsigned int)((total + kThreads - 1) / kThreads);
+__global__ void __launch_bounds__(kTileX* kSdfRows)
+    sdf_from_seed_kernel(const int* __restrict__ seed,
+                         const unsigned char* __restrict__ occ,
+                         const float* __restrict__ org, float* __restrict__ out,
+                         int n) {
+  const int y = blockIdx.y * kSdfRows + threadIdx.y;
+  if (y >= n) return;
+  const long long r0 = ((long long)blockIdx.z * n + y) * n;  // the row's first voxel
+  const int head = min((int)(-r0 & 3), n);  // voxels before its first 16-byte boundary
+  const int vecs = (n - head) >> 2;
+  const int j = blockIdx.x * kTileX + threadIdx.x;
+  if (j > vecs) return;
+  const float ox = org[0], oy = org[1], oz = org[2], vs = org[3];
+  // Columns and rows as floats exactly (field_f: f < 2^10), once a row.
+  const float py = __fadd_rn(oy, __fmul_rn(field_f(y, 0), vs));
+  const float pz = __fadd_rn(oz, __fmul_rn(field_f(blockIdx.z, 0), vs));
+  const int* srow = seed + r0;
+  const unsigned char* orow = occ + r0;
+  float* drow = out + r0;
+  if (j < vecs) {
+    const int x = head + 4 * j;
+    const int4 s = __ldcs(reinterpret_cast<const int4*>(srow + x));
+    const unsigned o = __ldcs(reinterpret_cast<const unsigned*>(orow + x));
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = __fadd_rn(ox, __fmul_rn(field_f(x + i, 0), vs));
+    const float4 d = make_float4(signed_d2(s.x, o & 0xFFu, p[0], py, pz, ox, oy, oz, vs),
+                                 signed_d2(s.y, o & 0xFF00u, p[1], py, pz, ox, oy, oz, vs),
+                                 signed_d2(s.z, o & 0xFF0000u, p[2], py, pz, ox, oy, oz, vs),
+                                 signed_d2(s.w, o & 0xFF000000u, p[3], py, pz, ox, oy, oz, vs));
+    __stcs(reinterpret_cast<float4*>(drow + x), d);
+    return;
+  }
+  for (int x = 0; x < n; ++x) {
+    if (x == head) x = head + 4 * vecs;  // past the vectors
+    if (x >= n) break;
+    const float px = __fadd_rn(ox, __fmul_rn(field_f(x, 0), vs));
+    drow[x] = signed_d2(srow[x], orow[x], px, py, pz, ox, oy, oz, vs);
+  }
 }
 
 }  // namespace
@@ -529,7 +579,12 @@ extern "C" int vt_flood_step_pipe(const void* seed, const void* occ, const void*
 extern "C" int vt_sdf_from_seed(const void* seed, const void* occ,
                                 const void* org, void* out, int n,
                                 void* stream) {
-  sdf_from_seed_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  // 16-byte seeds and out, 4-byte occ: the vectors' alignment.
+  if (((size_t)seed | (size_t)out) % 16 != 0 || (size_t)occ % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int threads = (n + 3) / 4;  // a row's vectors, and its scalar thread
+  const dim3 grid((threads + kTileX - 1) / kTileX, (n + kSdfRows - 1) / kSdfRows, n);
+  sdf_from_seed_kernel<<<grid, dim3(kTileX, kSdfRows), 0, (cudaStream_t)stream>>>(
       (const int*)seed, (const unsigned char*)occ, (const float*)org,
       (float*)out, n);
   return (int)cudaGetLastError();

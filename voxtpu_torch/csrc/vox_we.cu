@@ -7,7 +7,7 @@
 // its supertile (-1 inert), packed lane w = g*nw + w' (sub-tile g, word
 // w'), lane bound hi = (g+1)*nw, the XOR of its fragments' in-word
 // suffix masks, and the parity of its fragment count. The supertile's
-// (tc, wpad) panel word at lane q of cell c is
+// (tc, kLanes) panel word at lane q of cell c is
 //
 //   XOR over its events at c of (mask if q == w)
 //                            ^ (~0 if the count is odd and w < q < hi).
@@ -16,37 +16,53 @@
 // (the carry count and four mask bytes, exact only because events are
 // unique per (cell, word)) and accumulates a supertile's batches in VMEM
 // between FIRST and LAST flags of its sequential grid. The function is
-// XOR-linear in the events, so here:
+// XOR-linear in the events, so here one block takes one supertile:
 //
-// - One block per supertile. It finds its batches by binary search over
-//   the non-decreasing batch_tile (the plans' order; a batch outside
-//   [0, num_super) is never found, so it is skipped), zeroes two
-//   (tc, wpad + 1) word arrays in shared memory, and one thread per
-//   event XORs the mask into its (c, w) word and, for an odd count,
-//   toggles a carry marker at lane w + 1 and again at lane hi, both
-//   with shared-memory atomicXor. Duplicate events compose by XOR.
-// - One thread per cell then runs the markers into a prefix XOR along
-//   its lanes (every lane in [w + 1, hi) is flipped once per odd event)
-//   and XORs in the masks. The row stride wpad + 1 keeps that walk free
-//   of bank conflicts.
-// - The block writes its G sub-tiles' words straight into the
-//   (n, n, n/32) grid: sub-tile g's cells are the consecutive run
-//   (s*G + g)*tc + c, so the panel's G*tc*nw words are one contiguous
-//   output range, written once each with coalesced stores (voxtpu's
-//   lane-panel unpack, `_we_words`). Every output word is written, so
-//   the output needs no zeroing.
+// - It finds its batches by binary search over the non-decreasing
+//   batch_tile (the plans' order; a batch outside [0, num_super) is
+//   never found, so it is skipped) and zeroes, with 16-byte stores, the
+//   (tc, kLanes) word array `inword` and the (tc, 4) words `carry`: one
+//   marker bit a lane.
+// - A thread an event XORs the mask into its (c, w) word and, for an odd
+//   count, toggles the marker bits of lanes w + 1 and hi, each with a
+//   shared atomicXor of one bit; a marker at hi = kLanes lies past every
+//   lane and is dropped. Duplicate events compose by XOR.
+// - A thread a cell turns its four marker words into carries: each word
+//   takes a bit prefix XOR (x ^= x << 1, << 2, ... << 16), then the
+//   parity of the cell's lower words (__popc & 1) as 0 or ~0. Bit q is
+//   then the XOR of the markers at lanes <= q: set where an odd number
+//   of odd events has w < q < hi.
+// - The write-out folds the carries in: grid word (sub, c, w') is
+//   inword[c][q] ^ (carry bit q ? ~0 : 0) at lane q = sub*nw + w'. Sub-
+//   tile sub's cells are the consecutive run (s*G + sub)*tc + c, so the
+//   panel's G*tc*nw words are one contiguous output range (voxtpu's
+//   lane-panel unpack, `_we_words`), written once each, as uint4 where
+//   nw % 4 == 0 (n = 128, 512, 1024, ...) and as words otherwise (n = 64,
+//   96); a thread's (sub, c, w') steps with its index, no division a
+//   word. Every output word is written, so the output needs no zeroing.
+//
+// tests/test_torch_we_emulated.py runs this file on the host through
+// tests/emulation.py (the cuda_runtime.h include, the `extern __shared__`
+// array and the `<<<...>>>` launch are rewritten). So the block's batch
+// range lives in the dynamic array too: the rewrite would make a static
+// __shared__ variable a thread's own.
 //
 // Bound on this card: bytes. Each event is read once (five int32, 20 B)
-// and each output word written once (n^3 / 8 bytes): about 0.01 ms at
-// 512^3. Shared memory is 2 x tc x (wpad + 1) x 4 B (132 KB at tc = 128,
-// wpad = 128), so one block fits an SM, and the per-cell lane walk runs
-// on tc threads of the block.
+// and each output word written once (n^3 / 8 bytes): 0.0052 ms at 512^3
+// on the washers of chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// Shared memory is tc x (kLanes + 4) x 4 B + 16, 66 KB at tc = 128, so three
+// 512-thread blocks fit an SM (at most 40 registers a thread, by the
+// launch bounds): the 256 supertiles of 512^3 run in one wave on the
+// 132 SMs (396 slots); 1024^3's 2048 take six.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kLanes = 128;  // a supertile panel's lanes (wpad)
+constexpr int kCarryWords = kLanes / 32;
+static_assert(kCarryWords == 4, "a cell's carries are one uint4");
 
 __device__ int lower_bound(const int* __restrict__ a, int len, int value) {
   int lo = 0, hi = len;
@@ -61,82 +77,137 @@ __device__ int lower_bound(const int* __restrict__ a, int len, int value) {
   return lo;
 }
 
-__global__ void word_event_fill_kernel(
+__device__ __forceinline__ void toggle(unsigned* bits, int lane) {
+  atomicXor(&bits[lane >> 5], 1u << (lane & 31));
+}
+
+// Bit i of the result: the XOR of bits 0 ... i of x.
+__device__ __forceinline__ unsigned prefix_xor(unsigned x) {
+  x ^= x << 1;
+  x ^= x << 2;
+  x ^= x << 4;
+  x ^= x << 8;
+  x ^= x << 16;
+  return x;
+}
+
+// ~0 if x has an odd number of bits set, else 0.
+__device__ __forceinline__ unsigned odd(unsigned x) { return 0u - (__popc(x) & 1u); }
+
+__device__ __forceinline__ unsigned spread(unsigned bit) { return 0u - (bit & 1u); }
+
+// The panel's g*tc rows (sub, c) of nw words into dst, kV words a unit:
+// unit u = (sub*tc + c) * (nw / kV) + wu, a thread's units kThreads apart,
+// (sub, c, wu) stepped with their carries.
+template <int kV>
+__device__ __forceinline__ void write_panel(const unsigned* inword, const unsigned* carry,
+                                            int tc, int nw, int g, unsigned* dst) {
+  const int units = nw / kV, total = g * tc * units;
+  int u = threadIdx.x;
+  int wu = u % units, c = (u / units) % tc, sub = u / units / tc;
+  const int dwu = kThreads % units, dc = kThreads / units % tc, dsub = kThreads / units / tc;
+  for (; u < total; u += kThreads) {
+    const int q = sub * nw + wu * kV;  // lane of the unit's first word
+    const unsigned bits = carry[c * kCarryWords + (q >> 5)] >> (q & 31);
+    const unsigned* in = inword + c * kLanes + q;
+    if constexpr (kV == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(in);
+      reinterpret_cast<uint4*>(dst)[u] =
+          make_uint4(v.x ^ spread(bits), v.y ^ spread(bits >> 1), v.z ^ spread(bits >> 2),
+                     v.w ^ spread(bits >> 3));
+    } else {
+      dst[u] = *in ^ spread(bits);
+    }
+    wu += dwu;
+    c += dc;
+    sub += dsub;
+    if (wu >= units) {
+      wu -= units;
+      ++c;
+    }
+    if (c >= tc) {
+      c -= tc;
+      ++sub;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3) word_event_fill_kernel(
     const int* __restrict__ cells, const int* __restrict__ ws,
     const int* __restrict__ his, const int* __restrict__ masks,
     const int* __restrict__ cnts, const int* __restrict__ batch_tile,
-    int num_batches, int tb, int tc, int nw, int g, int wpad,
-    unsigned int* __restrict__ out) {
-  extern __shared__ unsigned int smem[];
-  const int stride = wpad + 1;
-  unsigned int* inword = smem;              // [tc][stride]
-  unsigned int* flip = smem + tc * stride;  // [tc][stride]
-  __shared__ int range[2];
+    int num_batches, int tb, int tc, int nw, int g, unsigned* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  unsigned* inword = reinterpret_cast<unsigned*>(smem);  // [tc][kLanes]
+  uint4* carry4 = smem + tc * (kLanes / 4);                // [tc]: 4 words a cell
+  unsigned* carry = reinterpret_cast<unsigned*>(carry4);
+  int* range = reinterpret_cast<int*>(carry4 + tc);       // the block's batches
   const int s = blockIdx.x;
 
   if (threadIdx.x == 0) range[0] = lower_bound(batch_tile, num_batches, s);
   if (threadIdx.x == 32) range[1] = lower_bound(batch_tile, num_batches, s + 1);
-  for (int i = threadIdx.x; i < 2 * tc * stride; i += blockDim.x) smem[i] = 0u;
+  for (int i = threadIdx.x; i < tc * (kLanes / 4 + 1); i += kThreads)
+    smem[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
 
   const long long e_end = (long long)range[1] * tb;
-  for (long long e = (long long)range[0] * tb + threadIdx.x; e < e_end;
-       e += blockDim.x) {
+  for (long long e = (long long)range[0] * tb + threadIdx.x; e < e_end; e += kThreads) {
     const int c = cells[e];
     const int w = ws[e];
-    if (c < 0 || c >= tc || w < 0 || w >= wpad) continue;  // inert event
+    if (c < 0 || c >= tc || w < 0 || w >= kLanes) continue;  // inert event
     const unsigned int m = (unsigned int)masks[e];
-    if (m) atomicXor(&inword[c * stride + w], m);
+    if (m) atomicXor(&inword[c * kLanes + w], m);
     if (cnts[e] & 1) {
-      const int hi = min(his[e], wpad);
+      const int hi = min(his[e], kLanes);
       if (w + 1 < hi) {
-        atomicXor(&flip[c * stride + w + 1], 1u);
-        atomicXor(&flip[c * stride + hi], 1u);  // hi <= wpad < stride
+        toggle(carry + c * kCarryWords, w + 1);
+        if (hi < kLanes) toggle(carry + c * kCarryWords, hi);
       }
     }
   }
   __syncthreads();
 
-  for (int c = threadIdx.x; c < tc; c += blockDim.x) {
-    unsigned int run = 0u;
-    for (int q = 0; q < wpad; ++q) {
-      run ^= flip[c * stride + q];
-      flip[c * stride + q] = inword[c * stride + q] ^ (0u - run);
-    }
+  for (int c = threadIdx.x; c < tc; c += kThreads) {
+    const uint4 m = carry4[c];
+    const unsigned below1 = odd(m.x), below2 = below1 ^ odd(m.y), below3 = below2 ^ odd(m.z);
+    carry4[c] = make_uint4(prefix_xor(m.x), prefix_xor(m.y) ^ below1,
+                           prefix_xor(m.z) ^ below2, prefix_xor(m.w) ^ below3);
   }
   __syncthreads();
 
-  // Panel word (c, sub*nw + w) -> grid word ((s*g + sub)*tc + c)*nw + w,
-  // i.e. out[s*g*tc*nw + i] for i = (sub*tc + c)*nw + w.
-  unsigned int* dst = out + (long long)s * g * tc * nw;
-  for (int i = threadIdx.x; i < g * tc * nw; i += blockDim.x) {
-    const int w = i % nw;
-    const int c = (i / nw) % tc;
-    const int sub = i / (nw * tc);
-    dst[i] = flip[c * stride + sub * nw + w];
+  // Panel word (c, sub*nw + w) -> grid word ((s*g + sub)*tc + c)*nw + w.
+  unsigned* dst = out + (long long)s * g * tc * nw;
+  if (nw % 4 == 0) {
+    write_panel<4>(inword, carry, tc, nw, g, dst);
+  } else {
+    write_panel<1>(inword, carry, tc, nw, g, dst);
   }
 }
 
 }  // namespace
 
 // B12: out (n, n, nw) words, num_super * g * tc * nw of them; written
-// whole (no zeroing needed).
+// whole (no zeroing needed). wpad must be kLanes (every plan's).
 extern "C" int vt_word_event_fill(const void* cells, const void* ws,
                                   const void* his, const void* masks,
                                   const void* cnts, const void* batch_tile,
                                   int num_batches, int tb, int tc, int nw,
                                   int g, int num_super, int wpad, void* out,
                                   void* stream) {
-  const size_t smem = 2 * (size_t)tc * (wpad + 1) * sizeof(unsigned int);
+  if (wpad != kLanes) return (int)cudaErrorInvalidValue;
+  const int smem = (tc * (kLanes + kCarryWords) + 4) * (int)sizeof(unsigned);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        word_event_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(
+        word_event_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)  // shared memory first: three blocks an SM
+      e = cudaFuncSetAttribute(word_event_fill_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
   }
   word_event_fill_kernel<<<num_super, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)cells, (const int*)ws, (const int*)his, (const int*)masks,
       (const int*)cnts, (const int*)batch_tile, num_batches, tb, tc, nw, g,
-      wpad, (unsigned int*)out);
+      (unsigned*)out);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,8 @@ sorted keys whenever the overflow is 0.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -66,8 +68,10 @@ def _check_geometry(n: int, tc: int) -> None:
         raise ValueError(f"tc={tc} must divide N^2={n * n}")
 
 
+@functools.lru_cache(maxsize=64)
 def _panel_geometry(n: int, tc: int):
-    """(num_words, num_tiles, group, num_super, wpad) of one grid."""
+    """(num_words, num_tiles, group, num_super, wpad) of one grid (cached:
+    B12's wrapper asks on every call)."""
     nw = n // WORD_BITS
     num_tiles = n * n // tc
     g = _group_factor(nw, num_tiles)
@@ -319,7 +323,7 @@ def word_event_fill(cells, ws, his, masks, cnts, batch_tile, *, n: int,
     nw, _, g, num_super, wpad = _panel_geometry(n, tc)
     if not _build.on_cuda(cells, ws, his, masks, cnts, batch_tile):
         return word_event_fill_plain(cells, ws, his, masks, cnts, batch_tile, n=n, tc=tc)
-    if 2 * tc * (wpad + 1) * 4 > _SMEM_MAX:
+    if (tc * (wpad + wpad // WORD_BITS) + 4) * 4 > _SMEM_MAX:
         raise ValueError(f"tc={tc} x {wpad} lanes exceeds one block's shared "
                          f"memory ({_SMEM_MAX} bytes)")
     out = torch.empty((n, n, nw), dtype=torch.int32, device=cells.device)
