@@ -12,8 +12,10 @@ and no result line:
    sm_90a and prints the build time and ptxas's resource report.
 3. Kernels against their plain torch versions on the card, exact:
    B1 (banded fill) on an icosphere at n=128, band=64; B2 (whole-axis
-   fill) through the pipeline on the icosahedron at n=192, band=64, and
-   on live random slots; B3 (flood step) at every stride of n=128, and
+   fill) through the pipeline on the icosahedron at n=192, band=64 (in
+   place into B1's grid), and on live random slots, into a buffer and in
+   place into a random grid against the plain fill and its merge; B3
+   (flood step) at every stride of n=128, and
    B4 (row-band flood step, bands of 32 and 100) against it; B5
    (signed distance) at n=128; B6 (pipelined flood step) at every
    stride of n=128 against its plain version and B3, and with the
@@ -29,13 +31,21 @@ and no result line:
    kernel; the folded grid must equal the plain pipeline on the card
    (xor popcount 0) and the SDF the plain flood (bitwise, inf == inf);
    every B3 step of the flood must equal its plain version and B4 in
-   bands of 256 and 100. Then each kernel is timed beside its plain version at these shapes
-   (CUDA events, warm, median of 5 single calls); B1, B2 and B5 also as
-   the device time a launch over a run of back-to-back launches
-   (`device_ms`: a single call's time also holds the wrapper's host
-   work, which the card waits for). The washers' wide slots are all
-   inert (an x-parallel cap covers no cell centre), so B2 is also timed
-   on random live slots of the same shape and tiles. Then, while the
+   bands of 256 and 100. The batches per tile that B1 and B2 see are
+   printed with their cluster sizes. Then each kernel is timed beside
+   its plain version at these shapes (CUDA events, warm, median of 5
+   single calls); B1, B2 (in place, as the pipeline runs it, and into a
+   compact buffer) and B5 also as the device time a launch over a run of
+   back-to-back launches (`device_ms`: a single call's time also holds
+   the wrapper's host work, which the card waits for), each beside its
+   bound (B2 in place: slots + 2 x k x tc x n/8 bytes). The washers'
+   wide slots are all inert (an x-parallel cap covers no cell centre),
+   so B2 is also held (into a buffer and in place) and timed on random
+   live slots of the same shape and tiles. One whole banded_total call
+   is timed (a call in a run, a single call, the host wall of
+   `words()`), and its host part split into the geometry tensors, the
+   emit, the wrappers' checks, the allocation, data_ptr and the stream,
+   and the ctypes calls (`host_split`). Then, while the
    folded grid is live, `jfa(grid, backend="cuda", pipe=True)` (voxtpu's
    JFA_PIPE=1) must launch B6 9 times (k = 256 ... 2 and the fused
    k = 1) and B3 and B5 never, and equal the CLI's SDF bitwise; B6 is
@@ -46,9 +56,13 @@ and no result line:
    freed before phase 5): B12 (word-event fill) against its plain
    version on the icosphere at n=96 (36 tiles a supertile), n=128, and
    n=128 with tc=64, tb_sub=1; then on phase 4's two washers at 512^3
-   and 1024^3, `voxelize(backend="word_event")` on a WordEventVoxPlan
-   and DeviceVoxPipeline.words() must each equal the banded pipeline's
-   grid (xor popcount 0, overflow 0) and launch B12, which is held
+   and 1024^3, the banded pipeline's grid (B1, B2 in place) must equal
+   the plain pipeline's (xor popcount 0), and at 1024^3 B1 and B2 are
+   timed on washer_a as in phase 4 with the batches per tile and one
+   whole banded_total call; `voxelize(backend="word_event")` on a
+   WordEventVoxPlan and DeviceVoxPipeline.words() must each equal the
+   banded pipeline's grid (xor popcount 0, overflow 0) and launch B12,
+   which is held
    against its plain version at full size and timed on washer_a at both
    sizes (a single call and `device_ms`); events, batches, plan build
    times and the per-call totals of DeviceVoxPipeline.words() and of
@@ -1126,8 +1140,193 @@ def plain_words(pipe, spec):
         w_ctile, w_uidx = st.wide[3], st.wide[4]
         w_words = wide_fill_plain(*wide, w_ctile, n=n, tc=tc,
                                   num_tiles=w_uidx.shape[0])
-        words.view(-1, tc, n // 32)[w_uidx] ^= w_words
+        words.view(-1, tc, n // 32)[w_uidx.long()] ^= w_words
     return words
+
+
+def fill_spread(pipe) -> str:
+    """The batches per tile that B1 and B2 see on a pipeline's plan, and
+    the cluster size each kernel takes."""
+    import numpy as np
+
+    st = pipe.state
+    parts = []
+    for name, tiles, num_tiles, layout in (
+            ("B1", st.batch_tile, pipe.num_tiles, st.layout),
+            ("B2", None if st.wide is None else st.wide[3],
+             0 if st.wide is None else st.wide[4].shape[0], st.wide_layout)):
+        if tiles is None:
+            continue
+        counts = np.bincount(tiles.cpu().numpy(), minlength=num_tiles)
+        busy = counts[counts > 0]
+        parts.append(f"{name}: {int(counts.sum())} batches on {len(busy)} of {num_tiles} "
+                     f"tiles, up to {int(busy.max())} a tile (mean {busy.mean():.1f} on a "
+                     f"busy tile), cluster {layout.cluster}")
+    return "; ".join(parts)
+
+
+def fill_calls(pipe, spec, banded, wide):
+    """Zero-argument calls of B1 and B2 as one call of the pipeline runs
+    them, on the slots (banded, wide), their plain versions, and the
+    bytes each must move. "B2" is the pipeline's form, in place into a
+    scratch grid (`wide_fill_into`); "B2 compact" the compact buffer
+    alone. Each takes its plan's layout."""
+    import torch
+
+    from voxtpu_torch.ops import vox_cuda
+    from voxtpu_torch.ops import vox_slots_banded as V
+
+    st, n, tc = pipe.state, spec.n, pipe.tc
+    lk, xs = banded
+    kw = dict(n=n, tc=tc, band=pipe.band)
+    w_ctile, w_uidx = st.wide[3], st.wide[4]
+    k, nw = w_uidx.shape[0], n // 32
+    grid = torch.zeros((n, n, nw), dtype=torch.int32, device=lk.device)
+    rows = grid.view(-1, tc, nw)
+
+    def plain_merge():
+        rows[w_uidx.long()] ^= vox_cuda.wide_fill_plain(*wide, w_ctile, n=n, tc=tc,
+                                                        num_tiles=k)
+
+    calls = {
+        "B1": lambda: V.banded_fill(lk, xs, st.batch_tile, st.batch_basew, **kw,
+                                    layout=st.layout),
+        "B1 plain": lambda: V.banded_fill_plain(lk, xs, st.batch_tile, st.batch_basew, **kw),
+        "B2": lambda: vox_cuda.wide_fill_into(grid, *wide, w_ctile, w_uidx, n=n, tc=tc,
+                                              layout=st.wide_layout),
+        "B2 compact": lambda: vox_cuda.wide_fill(*wide, w_ctile, n=n, tc=tc, num_tiles=k,
+                                                 layout=st.wide_layout),
+        "B2 plain": plain_merge,
+    }
+    slot_bytes = nbytes(*wide, w_ctile)
+    moved = {"B1": nbytes(lk, xs, st.batch_tile, st.batch_basew) + n ** 3 // 8,
+             "B2": slot_bytes + nbytes(w_uidx) + 2 * k * tc * n // 8,
+             "B2 compact": slot_bytes + k * tc * n // 8}
+    return calls, moved, grid
+
+
+def time_fills(calls, moved, what: str) -> dict:
+    """Single-call and run times of B1, B2 (the pipeline's form) and B2's
+    compact form, each beside its bound; printed and returned by name."""
+    out = {}
+    for name in ("B1", "B2", "B2 compact"):
+        single, run_ms = cuda_ms(calls[name]), device_ms(calls[name])
+        b = bound(moved[name])
+        out[name] = (single, run_ms, b)
+        print(f"{what} {name}: {single:.4f} ms a single call, {run_ms:.4f} ms a launch in "
+              f"a run, bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / run_ms:.0f}% of it by run")
+    return out
+
+
+def time_total(pipe, what: str) -> tuple[float, float, float]:
+    """One whole banded_total call: its device time (a call in a run,
+    `device_ms`, on geometry tensors made once), a single call between
+    two events, and the host wall of `pipe.words()` to a finished grid
+    (median of 50 calls, each followed by a synchronize)."""
+    import torch
+
+    from voxtpu_torch.ops.vox_slots_banded import banded_total
+
+    spec, dev = pipe.spec, pipe.device
+    origin, vs = spec.origin_tensor(dev), spec.voxel_size_tensor(dev)
+
+    def call():
+        return banded_total(pipe.state, origin, vs, n=spec.n, tc=pipe.tc, band=pipe.band)
+
+    # Four calls a run (~100 launches each): more would fill the card's
+    # launch queue, and the host would wait for the card inside the run.
+    run_ms, single = device_ms(call, launches=4), cuda_ms(call)
+    walls = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.words()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[len(walls) // 2]
+    print(f"{what} banded_total: {run_ms:.4f} ms a call in a run, {single:.4f} ms a single "
+          f"call, host wall {wall:.4f} ms to a finished grid")
+    return run_ms, single, wall
+
+
+def host_split(pipe, spec, reps: int = 200) -> dict:
+    """The host part of one banded_total call, split (median of `reps`
+    timings of each part alone, `time.perf_counter`, the card drained
+    before each, so that no timing holds a wait for a full launch
+    queue): the grid geometry as device tensors made from host values
+    (what `words()` did each call until the pipeline kept them), the
+    emit's torch ops, the wrappers' argument checks, the grid's
+    allocation, the tensors' data_ptr and the stream, and the two ctypes
+    calls (B1, B2 in place) with their launches; then a whole
+    `pipe.words()`. Returns ms by part and prints them."""
+    import torch
+
+    from voxtpu_torch import _build
+    from voxtpu_torch.ops import vox_cuda
+    from voxtpu_torch.ops import vox_slots_banded as V
+
+    st, n, tc, band = pipe.state, spec.n, pipe.tc, pipe.band
+    nw = n // 32
+    dev = pipe.device
+    origin, vs = spec.origin_tensor(dev), spec.voxel_size_tensor(dev)
+    (lk, xs), wide, _ = V.emit_slots(st, origin, vs, n=n, tc=tc, band=band)
+    w_ctile, w_uidx = st.wide[3], st.wide[4]
+    words = torch.empty((n, n, nw), dtype=torch.int32, device=dev)
+
+    def checks():
+        V._check_slots(lk, xs, st.batch_tile)
+        _build.expect(st.batch_basew, "batch_basew", torch.int32, (lk.shape[0],))
+        _build.on_cuda(lk, xs, st.batch_tile, st.batch_basew)
+        vox_cuda.fill_rows(nw, tc)
+        vox_cuda._layout(st.layout, st.batch_tile, pipe.num_tiles, nw=nw, tc=tc)
+        vox_cuda._check_slots(*wide, w_ctile)
+        _build.expect(words, "words", torch.int32, (n, n, nw))
+        _build.expect(w_uidx, "tile_map", torch.int32, (None,))
+        _build.on_cuda(words, *wide, w_ctile, w_uidx)
+        vox_cuda._layout(st.wide_layout, w_ctile, w_uidx.shape[0], nw=nw, tc=tc)
+
+    lay, wlay = st.layout, st.wide_layout
+
+    def pointers():
+        return (lk.data_ptr(), xs.data_ptr(), st.batch_basew.data_ptr(),
+                lay.start.data_ptr(), lay.order.data_ptr(), words.data_ptr(),
+                _build.stream_of(words), wide[0].data_ptr(), wide[1].data_ptr(),
+                wlay.start.data_ptr(), wlay.order.data_ptr(), w_uidx.data_ptr(),
+                _build.stream_of(words))
+
+    p = pointers()
+    b, tb, k = lk.shape[0], lk.shape[1] * lk.shape[2], w_uidx.shape[0]
+    wb, wtb = wide[0].shape[0], wide[0].shape[1] * wide[0].shape[2]
+
+    def ctypes_calls():
+        _build.launch("vt_banded_fill", *p[:5], b, tb, tc, nw, band // 32, pipe.num_tiles,
+                      lay.nbusy, lay.cluster, p[5], p[6])
+        _build.launch("vt_wide_fill", *p[7:12], wb, wtb, tc, nw, k, wlay.nbusy,
+                      pipe.num_tiles, wlay.cluster, p[5], p[12])
+
+    parts = {
+        "geometry tensors": lambda: (spec.origin_tensor(dev), spec.voxel_size_tensor(dev)),
+        "emit": lambda: V.emit_slots(st, origin, vs, n=n, tc=tc, band=band),
+        "checks": checks,
+        "allocation": lambda: torch.empty((n, n, nw), dtype=torch.int32, device=dev),
+        "data_ptr and stream": pointers,
+        "ctypes calls": ctypes_calls,
+        "whole call": pipe.words,
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out[name] = sorted(times)[len(times) // 2]
+    print("host part of one banded_total call (ms, median of "
+          f"{reps}): " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def plain_flood(occ, org):
@@ -1352,6 +1551,7 @@ def word_event_route(dev, errs, timings, bounds, meshes):
     import torch
 
     from voxtpu_torch.grids.voxel_grid import GridSpec
+    from voxtpu_torch.ops import vox_cuda, vox_slots_banded
     from voxtpu_torch.ops import vox_word_event as W
     from voxtpu_torch.ops.vox import voxelize
     from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
@@ -1366,6 +1566,19 @@ def word_event_route(dev, errs, timings, bounds, meshes):
             banded = BandedSlotVoxPipeline(mesh, spec, dev)
             want, overflow = banded.words()
             require(int(overflow) == 0, f"banded overflow at {n}^3")
+            x_plain = xor_popcount(want, plain_words(banded, spec))
+            errs["B1"] = max(errs["B1"], x_plain)
+            require(x_plain == 0, f"{mesh.name} {n}^3: the banded grid (B1, B2 in place) "
+                    f"differs from the plain pipeline (xor popcount {x_plain})")
+            if n != MAIN_N and mesh is meshes[0]:
+                print(f"batches per tile at {n}^3: " + fill_spread(banded))
+                with uncounted(vox_slots_banded.banded_fill, vox_cuda.wide_fill):
+                    calls, moved, _ = fill_calls(banded, spec, *pipeline_inputs(banded, spec))
+                    fills = time_fills(calls, moved, f"{n}^3 {mesh.name}")
+                    timings["B1", n] = fills["B1"]
+                    timings["B2", n] = fills["B2"]
+                    del calls
+                    time_total(banded, f"{n}^3 {mesh.name}")
             t1 = time.perf_counter()
             plan = W.WordEventVoxPlan(mesh, spec, dev)
             torch.cuda.synchronize()
@@ -1665,8 +1878,18 @@ def run() -> int:
                                         num_tiles=tiles)
         errs["B2"] = max(errs["B2"], int_err(got, want))
         require(torch.equal(got, want), f"B2 differs from plain on live slots (n={n})")
-    print(f"B2 n=192 band=64: {pipe.num_wide} wide candidates, equal; "
-          "live random slots at n=192 and 512 equal")
+        # In place: into a random grid through a tile map, against the merge.
+        grid = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, n, n // 32), generator=g,
+                             dtype=torch.int32).to(dev)
+        tile_map = torch.randperm(n * n // 128, generator=g)[:tiles].to(torch.int32).to(dev)
+        merged = grid.clone()
+        merged.view(-1, 128, n // 32)[tile_map.long()] ^= want
+        vox_cuda.wide_fill_into(grid, local, rxs, btile, tile_map, n=n, tc=128)
+        errs["B2"] = max(errs["B2"], int_err(grid, merged))
+        require(torch.equal(grid, merged),
+                f"B2 in place differs from the plain fill and merge (n={n})")
+    print(f"B2 n=192 band=64: {pipe.num_wide} wide candidates, equal (in place); "
+          "live random slots at n=192 and 512 equal, into a buffer and in place")
 
     grid128 = BandedSlotVoxPipeline(sphere, spec128, dev)()
     occ128 = grid128.to_dense()
@@ -1820,12 +2043,12 @@ def run() -> int:
         def steps(fn):
             return lambda: [fn(si, org, ki) for si, ki in seeds]
 
+        print("batches per tile at 512^3: " + fill_spread(p0))
+        calls, moved, _ = fill_calls(p0, spec, (lk, xs), (wk, wxs))
+        fills = time_fills(calls, moved, f"{MAIN_N}^3 washer_a (inert wide slots)")
         timings = {
-            "B1": (cuda_ms(lambda: B1(lk, xs, st.batch_tile, st.batch_basew, **kw)),
-                   cuda_ms(lambda: vox_slots_banded.banded_fill_plain(
-                       lk, xs, st.batch_tile, st.batch_basew, **kw))),
-            "B2": (cuda_ms(lambda: B2(wk, wxs, w_ctile, **wkw)),
-                   cuda_ms(lambda: vox_cuda.wide_fill_plain(wk, wxs, w_ctile, **wkw))),
+            "B1": (fills["B1"][0], cuda_ms(calls["B1 plain"])),
+            "B2": (fills["B2"][0], cuda_ms(calls["B2 plain"])),
             "B3": (cuda_ms(steps(B3), reps=3) / len(seeds),
                    cuda_ms(steps(jfa_cuda.flood_step_plain), reps=3) / len(seeds)),
             "B5": (cuda_ms(lambda: B5(final_seed, occ, org)),
@@ -1833,16 +2056,15 @@ def run() -> int:
         }
         n3 = MAIN_N ** 3
         bounds = {
-            "B1": bound(nbytes(lk, xs, st.batch_tile, st.batch_basew) + n3 // 8),
-            "B2": bound(nbytes(wk, wxs, w_ctile) + w_uidx.shape[0] * p0.tc * MAIN_N // 8),
+            "B1": fills["B1"][2],
+            "B2": fills["B2"][2],
             "B3": flood_bound(nbytes(seed0, org) + 4 * n3,
                               [flood_ops(si, ki) for si, ki in seeds]),
             "B5": bound(nbytes(final_seed, occ, org) + 4 * n3,
                         7 * n3 + 14 * int((final_seed >= 0).sum())),
         }
-        timings["B1", "device"] = device_ms(
-            lambda: B1(lk, xs, st.batch_tile, st.batch_basew, **kw))
-        timings["B2", "device"] = device_ms(lambda: B2(wk, wxs, w_ctile, **wkw))
+        timings["B1", "device"] = fills["B1"][1]
+        timings["B2", "device"] = fills["B2"][1]
         timings["B5", "device"] = device_ms(lambda: B5(final_seed, occ, org), launches=20)
         for name in ("B1", "B2", "B3", "B5"):
             (ms, plain_ms), dev_ms = timings[name], timings.get((name, "device"))
@@ -1863,17 +2085,25 @@ def run() -> int:
         want = vox_cuda.wide_fill_plain(live_k, live_xs, w_ctile, **wkw)
         errs["B2"] = max(errs["B2"], int_err(got, want))
         require(torch.equal(got, want), "B2 differs from plain on live slots (main shape)")
-        live_ms = cuda_ms(lambda: B2(live_k, live_xs, w_ctile, **wkw))
-        live_dev_ms = device_ms(lambda: B2(live_k, live_xs, w_ctile, **wkw))
-        live_plain_ms = cuda_ms(lambda: vox_cuda.wide_fill_plain(
-            live_k, live_xs, w_ctile, **wkw))
-        print(f"B2 on live random slots of the same shape: kernel {live_ms:.4f} ms a "
-              f"single call, {live_dev_ms:.4f} ms a launch in a run, plain "
-              f"{live_plain_ms:.4f} ms, equal")
+        live, live_moved, live_grid = fill_calls(p0, spec, (lk, xs), (live_k, live_xs))
+        with uncounted(B2):
+            live["B2"]()
+        merged = torch.zeros_like(live_grid)
+        merged.view(-1, p0.tc, MAIN_N // 32)[w_uidx.long()] ^= want
+        errs["B2"] = max(errs["B2"], int_err(live_grid, merged))
+        require(torch.equal(live_grid, merged),
+                "B2 in place differs from the plain merge on live slots (main shape)")
+        live_t = time_fills(live, live_moved, f"{MAIN_N}^3 washer_a (live random wide slots)")
+        live_plain_ms = cuda_ms(live["B2 plain"])
+        print(f"B2 on live random slots of the same shape: in place {live_t['B2'][0]:.4f} ms "
+              f"a single call, {live_t['B2'][1]:.4f} ms a launch in a run, plain fill and "
+              f"merge {live_plain_ms:.4f} ms, equal (into a buffer and in place)")
         print(f"shapes: B1 {tuple(lk.shape)} slots, B2 {tuple(wk.shape)} slots on "
               f"{w_uidx.shape[0]} tiles, B3 per step (mean of k={MAIN_N // 2}..1; every step "
               f"equal to its plain version and to B4 in bands of {jfa_cuda.ROW_BAND} and 100), "
               f"B5 {MAIN_N}^3")
+        time_total(p0, f"{MAIN_N}^3 washer_a")
+        host_split(p0, spec)
         launches["B6"] = jfa_pipe(errs, timings, bounds, result, occ, org, seeds)
         probe_main_path(org, seeds)
     # The serving path's grids and seeds (~6 GiB) are not the training

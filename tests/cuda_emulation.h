@@ -1,11 +1,15 @@
 // A host emulation of the CUDA features that the csrc sources run on
 // the host use (csrc/jfa.cu, jfa_probe.cu, soft_vox.cu, soft_vox_seg.cu,
-// vox_we.cu), for the tests/test_torch_*_emulated.py tests.
+// vox_we.cu, vox_fill.cu), for the tests/test_torch_*_emulated.py tests.
 //
-// A launch runs its blocks one after another; a block's threads run as
-// host threads, so that __syncthreads, __syncthreads_or and __any_sync
-// are barriers among them, and __syncwarp and the shuffles barriers
-// among a warp's threads. Atomics are std::atomic_ref operations. cp.async copies are queued by the copying
+// A launch runs its clusters one after another (a launch without a
+// cluster size: its blocks, as clusters of one); a cluster's blocks run
+// together, each with its own shared-memory buffer, and a block's threads
+// run as host threads, so that __syncthreads, __syncthreads_or and
+// __any_sync are barriers among them, cluster.sync() a barrier among the
+// cluster's threads, map_shared_rank the same offset in a sibling's
+// buffer, and __syncwarp and the shuffles barriers among a warp's
+// threads. Atomics are std::atomic_ref operations. cp.async copies are queued by the copying
 // thread and land when a wait requires their group (the latest a card
 // may land them). Float operations round to nearest on their own, as
 // __fadd_rn and friends do on the card (build with -ffp-contract=off).
@@ -19,6 +23,7 @@
 #include <cstring>
 #include <memory>
 #include <thread>
+#include <type_traits>
 #include <utility>
 #include <vector>
 
@@ -53,7 +58,24 @@ enum {
   cudaErrorInvalidConfiguration = 9,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 11,
   cudaSharedmemCarveoutMaxShared = 100
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
 };
 using std::fmaxf;
 using std::fminf;
@@ -122,7 +144,18 @@ struct EmuBlock {
   std::atomic<int> warp_acc[32][3];
   std::uint64_t warp_x[32][32];  // a shuffle's values, a warp's lanes
 };
-inline EmuBlock* emu_block = nullptr;
+inline thread_local EmuBlock* emu_block = nullptr;
+struct EmuCluster {
+  std::unique_ptr<std::barrier<>> bar;
+  int size;
+};
+inline thread_local EmuCluster* emu_cluster = nullptr;
+inline thread_local int emu_rank = 0;
+
+constexpr int kEmuMaxCluster = 16;
+constexpr size_t kEmuSmem = 232448;  // a block's most on the card
+alignas(16) inline unsigned char emu_smem_pool[kEmuMaxCluster][kEmuSmem];
+inline thread_local unsigned char* emu_smem = nullptr;  // this block's buffer
 inline thread_local int emu_or_calls = 0, emu_vote_calls = 0;
 
 inline int emu_tid() {
@@ -190,44 +223,86 @@ inline void emu_wait(int pending) {
 }
 
 inline int cudaGetLastError() { return emu_error.exchange(0); }
+inline const char* cudaGetErrorString(int) { return "emulated CUDA error"; }
 template <typename K>
 inline int cudaFuncSetAttribute(K, int, int) { return 0; }
 
-alignas(16) inline unsigned char emu_smem[232448];  // a block's most on the card
-
-template <typename Kernel, typename... Args>
-void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
-                Args... args) {
-  const int nt = block.x * block.y * block.z;
-  if (nt > 1024 || smem > sizeof(emu_smem) || grid.y > 65535 || grid.z > 65535) {
-    emu_error = cudaErrorInvalidConfiguration;
-    return;
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_cluster->bar->arrive_and_wait(); }
+  unsigned block_rank() const { return emu_rank; }
+  unsigned num_blocks() const { return emu_cluster->size; }
+  template <typename T>
+  T* map_shared_rank(T* p, unsigned rank) const {
+    auto* at = reinterpret_cast<unsigned char*>(const_cast<std::remove_cv_t<T>*>(p));
+    return reinterpret_cast<T*>(emu_smem_pool[rank] + (at - emu_smem));
   }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+// Clusters of `cluster` consecutive blocks along x, one after another.
+template <typename Kernel, typename... Args>
+int emu_run(Kernel kernel, dim3 grid, dim3 block, size_t smem, int cluster, Args... args) {
+  const int nt = block.x * block.y * block.z;
+  if (nt > 1024 || smem > kEmuSmem || grid.y > 65535 || grid.z > 65535 || cluster < 1 ||
+      cluster > kEmuMaxCluster || grid.x % cluster)
+    return cudaErrorInvalidConfiguration;
   blockDim = block;
   gridDim = grid;
-  EmuBlock blk;
-  blk.bar = std::make_unique<std::barrier<>>(nt);
-  for (int w = 0; w < (nt + 31) / 32; ++w)
-    blk.warp_bar.push_back(std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
-  for (auto& a : blk.acc) a = 0;
-  for (auto& w : blk.warp_acc)
-    for (auto& a : w) a = 0;
-  emu_block = &blk;
+  std::vector<std::unique_ptr<EmuBlock>> blks;
+  for (int r = 0; r < cluster; ++r) {
+    auto blk = std::make_unique<EmuBlock>();
+    blk->bar = std::make_unique<std::barrier<>>(nt);
+    for (int w = 0; w < (nt + 31) / 32; ++w)
+      blk->warp_bar.push_back(std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
+    for (auto& a : blk->acc) a = 0;
+    for (auto& w : blk->warp_acc)
+      for (auto& a : w) a = 0;
+    blks.push_back(std::move(blk));
+  }
+  EmuCluster cl{std::make_unique<std::barrier<>>(cluster * nt), cluster};
   std::vector<std::thread> threads;
-  for (int t = 0; t < nt; ++t)
+  for (int t = 0; t < cluster * nt; ++t)
     threads.emplace_back([&, t] {
-      threadIdx = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
+      const int rank = t / nt, tid = t % nt;
+      emu_block = blks[rank].get();
+      emu_cluster = &cl;
+      emu_rank = rank;
+      emu_smem = emu_smem_pool[rank];
+      threadIdx = dim3(tid % block.x, (tid / block.x) % block.y, tid / (block.x * block.y));
       emu_or_calls = emu_vote_calls = 0;
       emu_groups.clear();
       emu_open.clear();
       for (unsigned bz = 0; bz < grid.z; ++bz)
         for (unsigned by = 0; by < grid.y; ++by)
-          for (unsigned bx = 0; bx < grid.x; ++bx) {
-            blockIdx = dim3(bx, by, bz);
+          for (unsigned bx = 0; bx < grid.x; bx += cluster) {
+            blockIdx = dim3(bx + rank, by, bz);
             kernel(args...);
-            blk.bar->arrive_and_wait();
+            cl.bar->arrive_and_wait();
           }
     });
   for (auto& t : threads) t.join();
-  emu_block = nullptr;
+  return cudaSuccess;
+}
+
+template <typename Kernel, typename... Args>
+void emu_launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
+                Args... args) {
+  const int e = emu_run(kernel, grid, block, smem, 1, args...);
+  if (e) emu_error = e;
+}
+
+template <typename... Params, typename... Args>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Params...),
+                       Args&&... args) {
+  int cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i) {
+    if (cfg->attrs[i].id != cudaLaunchAttributeClusterDimension) continue;
+    const auto& d = cfg->attrs[i].val.clusterDim;
+    if (d.y != 1 || d.z != 1) return cudaErrorInvalidConfiguration;  // not emulated
+    cluster = (int)d.x;
+  }
+  return emu_run(kernel, cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cluster,
+                 Params(args)...);
 }

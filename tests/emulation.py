@@ -1,8 +1,9 @@
 """Build csrc sources for the host against `cuda_emulation.h`.
 
-Shared by the emulated kernel tests (`test_torch_flood_emulated.py`,
-`test_torch_soft_emulated.py`): a source's cuda_runtime.h include
-becomes the shim, each dynamic shared array the shim's buffer, each
+Shared by the emulated kernel tests (`test_torch_*_emulated.py`): a
+source's cuda_runtime.h include becomes the shim (which also holds the
+cooperative_groups cluster calls), each dynamic shared array the
+block's buffer in the shim, each
 `<<<...>>>` launch and each cp.async helper's asm a call into the shim.
 """
 
@@ -21,6 +22,7 @@ def host_source(src: str) -> str:
     shared memory as the shim's buffer, launches and cp.async through
     the shim."""
     src = src.replace("#include <cuda_runtime.h>", f'#include "{SHIM}"')
+    src = src.replace("#include <cooperative_groups.h>\n", "")
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];", r"\1* \2 = (\1*)emu_smem;", src)
     src = re.sub(r"(\w+(?:<\w+>)?)<<<(.+?)>>>\(", r"emu_launch(\1, \2, ", src, flags=re.S)
     src = re.sub(r'asm volatile\("cp\.async\.ca.*?"memory"\);', "emu_copy(dst, src);", src,
@@ -31,7 +33,8 @@ def host_source(src: str) -> str:
                  src, flags=re.S)
     src = src.replace("(unsigned)__cvta_generic_to_shared(dst)", "0u")
     code = re.sub(r"//.*", "", src)
-    for left in ("asm volatile", "<<<", "extern __shared__", "cuda_runtime.h>"):
+    for left in ("asm volatile", "<<<", "extern __shared__", "cuda_runtime.h>",
+                 "cooperative_groups.h>"):
         assert left not in code, f"the host rewrite missed {left!r}: update host_source"
     return src
 

@@ -6,6 +6,8 @@ Imports no jax, so it also runs where the port runs alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -63,8 +65,8 @@ def test_banded_pipeline_kernels_match_plain_and_oracle(dev, name, n, band):
                                      num_tiles=st.wide[4].shape[0])
         assert torch.equal(w_words, vox_cuda.wide_fill_plain(
             *wide, st.wide[3], n=n, tc=pipe.tc, num_tiles=st.wide[4].shape[0]))
-        plain.view(-1, pipe.tc, n // 32)[st.wide[4]] ^= w_words
-        assert torch.equal(words, plain)
+        plain.view(-1, pipe.tc, n // 32)[st.wide[4].long()] ^= w_words
+        assert torch.equal(words, plain)  # the pipeline's B2 ran in place
     oracle = pack_bits(torch.from_numpy(voxelize_ref(mesh, spec)))
     assert torch.equal(words.cpu(), oracle)
 
@@ -81,6 +83,68 @@ def test_wide_fill_kernel_matches_plain(dev, n, tc, tiles):
     assert vox_cuda.wide_fill.launches == before + 1
     want = vox_cuda.wide_fill_plain(local, xs, tile, n=n, tc=tc, num_tiles=tiles)
     assert torch.equal(got.cpu(), want)
+
+
+def _poisoned_cache(shape, dev):
+    """Leave a block of `shape` int32 filled with a pattern in the
+    caching allocator, so that the next torch.empty of that shape shows
+    any word a kernel does not write."""
+    torch.full(shape, 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,tc,band", [(128, 128, 64), (512, 128, 256), (96, 32, 64)])
+def test_banded_fill_kernel_with_busy_and_empty_tiles(dev, n, tc, band):
+    """B1 with 40 batches on one tile and 9 on another, every other tile
+    empty: on the layout a wrapper builds without a plan and on the
+    plan's (busy tiles first, zero writers) with clusters of 1, 5 and
+    16."""
+    g = torch.Generator().manual_seed(n + tc)
+    num_tiles, nw = n * n // tc, n // 32
+    tiles = torch.tensor([1] * 9 + [num_tiles // 2] * 40, dtype=torch.int32)
+    local = torch.randint(-1, tc, (len(tiles), 4, 128), generator=g, dtype=torch.int32)
+    basew = torch.randint(0, nw - band // 32 + 1, (len(tiles),), generator=g,
+                          dtype=torch.int32)
+    xs = basew.view(-1, 1, 1) * 32 + torch.randint(-8, band + 8, local.shape, generator=g,
+                                                   dtype=torch.int32)
+    want = vox_slots_banded.banded_fill_plain(local, xs, tiles, basew, n=n, tc=tc, band=band)
+    args = [t.to(dev) for t in (local, xs, tiles, basew)]
+    plan = vox_cuda.fill_layout(tiles.numpy(), num_tiles, dev, nw=nw, tc=tc)
+    assert plan.nbusy == 2
+    for layout in (None, *(dataclasses.replace(plan, cluster=c) for c in (1, 5, 16))):
+        _poisoned_cache((n, n, nw), dev)
+        before = vox_slots_banded.banded_fill.launches
+        got = vox_slots_banded.banded_fill(*args, n=n, tc=tc, band=band, layout=layout)
+        assert vox_slots_banded.banded_fill.launches == before + 1
+        assert torch.equal(got.cpu(), want), layout
+    assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("n,tc,tiles", [(64, 128, 3), (512, 128, 3), (4096, 128, 2)])
+def test_wide_fill_into_kernel_matches_plain_merge(dev, n, tc, tiles):
+    """B2 in place: the plain fill XORed into the mapped tiles of a random
+    grid, the others untouched; 300 batches on one tile."""
+    g = torch.Generator().manual_seed(n)
+    counts = [300] + [2] * (tiles - 1)
+    tile = torch.arange(tiles, dtype=torch.int32).repeat_interleave(torch.tensor(counts))
+    local = torch.randint(-1, tc, (len(tile), 4, 128), generator=g, dtype=torch.int32)
+    xs = torch.randint(0, n, local.shape, generator=g, dtype=torch.int32)
+    tile_map = torch.randperm(n * n // tc, generator=g)[:tiles].to(torch.int32)
+    grid = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, n, n // 32), dtype=torch.int32,
+                         device=dev)
+    want = grid.clone()
+    want.view(-1, tc, n // 32)[tile_map.long().to(dev)] ^= vox_cuda.wide_fill_plain(
+        local, xs, tile, n=n, tc=tc, num_tiles=tiles).to(dev)
+    plan = vox_cuda.fill_layout(tile.numpy(), tiles, dev, nw=n // 32, tc=tc)
+    assert plan.cluster > 1  # the busy tile spreads over a cluster
+    args = [t.to(dev) for t in (local, xs, tile, tile_map)]
+    for layout in (plan, dataclasses.replace(plan, cluster=vox_cuda.CLUSTER_MAX)):
+        before = vox_cuda.wide_fill.launches
+        got = vox_cuda.wide_fill_into(grid, *args, n=n, tc=tc, layout=layout)
+        assert got is grid and vox_cuda.wide_fill.launches == before + 1
+        assert torch.equal(grid, want), layout.cluster
+        want.view(-1, tc, n // 32)[tile_map.long().to(dev)] ^= vox_cuda.wide_fill_plain(
+            local, xs, tile, n=n, tc=tc, num_tiles=tiles).to(dev)  # applied again next
 
 
 @pytest.mark.parametrize("n", [32, 96])
@@ -426,9 +490,9 @@ def test_kernels_reject_bad_arguments(dev):
     local = torch.full((2, 4, 128), -1, dtype=torch.int32, device=dev)
     local[:, 0, 0] = 0
     xs = torch.zeros_like(local)
-    tile = torch.tensor([5, 1], dtype=torch.int32, device=dev)
+    tile = torch.tensor([1, 5], dtype=torch.int32, device=dev)
     got = vox_cuda.wide_fill(local, xs, tile, n=64, tc=128, num_tiles=2)
-    want = vox_cuda.wide_fill_plain(local[1:], xs[1:], tile[1:], n=64, tc=128,
+    want = vox_cuda.wide_fill_plain(local[:1], xs[:1], tile[:1], n=64, tc=128,
                                     num_tiles=2)
     assert torch.equal(got, want) and bool((want != 0).any())
     basew = torch.tensor([0, 1], dtype=torch.int32, device=dev)

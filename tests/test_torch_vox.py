@@ -26,7 +26,10 @@ from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.ops.reference import voxelize_ref
 from voxtpu_torch.ops.vox import voxelize
-from voxtpu_torch.ops.vox_cuda import TB_LANE, tile_batches, wide_fill
+from voxtpu_torch.ops import vox_slots_banded
+from voxtpu_torch.ops.vox_cuda import (CLUSTER_MAX, TB_LANE, _layout, fill_layout, fill_rows,
+                                       tile_batches, wide_fill, wide_fill_into,
+                                       wide_fill_plain)
 from voxtpu_torch.ops.vox_slots import _slot_emit
 from voxtpu_torch.ops.vox_slots_banded import (BAND, BandedSlotVoxPipeline,
                                                banded_fill)
@@ -309,3 +312,81 @@ def test_wrappers_reject_bad_inputs():
                     n=64, tc=128, band=64)
     with pytest.raises(ValueError, match="band"):
         banded_fill(local, local, tiles, tiles, n=64, tc=128, band=48)
+
+
+def test_fill_layout_ranges_and_refuses_unsorted_batches(monkeypatch):
+    """A plan's FillLayout: each tile's batch range and a cluster from
+    the mean batches on a busy tile, capped at one wave; a batch_tile out
+    of order is refused when the plan is built (the fill kernels find a
+    tile's batches as one range)."""
+    geo = dict(nw=16, tc=128)  # 512^3: 8704 bytes a block, 2 blocks an SM
+    got = fill_layout(np.array([-1, 0, 0, 2, 2, 2, 2, 2, 2, 2, 2, 2, 5]), 4, "cpu", **geo)
+    assert got.order.tolist() == [0, 2, 1, 3] and got.nbusy == 2
+    assert got.start.tolist() == [1, 3, 12]  # tile 0: batches 1-2, tile 2: 3-11
+    assert got.start.dtype == torch.int32 and got.cluster == 1  # 5.5 batches a busy tile
+    empty = fill_layout(np.array([7]), 4, "cpu", **geo)  # its one batch on no tile
+    assert empty.nbusy == 0 and empty.start.tolist() == [0]
+    assert fill_layout(np.arange(3).repeat(300), 3, "cpu", **geo).cluster == CLUSTER_MAX
+    assert fill_layout(np.array([0] * 40 + [1] * 20), 3, "cpu", **geo).cluster == 2  # 30
+    # 300 busy tiles of 200 batches: one wave of 2 blocks on each of 132 SMs
+    assert fill_layout(np.arange(300).repeat(200), 300, "cpu", **geo).cluster == 1
+    # 100 busy tiles of 64 batches: 2 blocks a tile in one wave at 512^3;
+    # at 8192^3 a block takes 135168 bytes, so an SM holds one
+    assert fill_layout(np.arange(100).repeat(64), 100, "cpu", **geo).cluster == 2
+    assert fill_layout(np.arange(100).repeat(64), 100, "cpu", nw=256, tc=128).cluster == 1
+    with pytest.raises(ValueError, match="non-decreasing"):
+        fill_layout(np.array([0, 2, 1]), 3, "cpu", **geo)
+    coords, faces = procedural.icosahedron()
+    mesh = Mesh(coords=coords, faces=faces)
+    spec = GridSpec.fit(coords, 96)
+    BandedSlotVoxPipeline(mesh, spec, "cpu", band=32)  # routes candidates wide
+
+    def unsorted(bounds, tb):
+        tiles, starts, ends = tile_batches(bounds, tb)
+        return tiles[::-1].copy(), starts[::-1].copy(), ends[::-1].copy()
+
+    monkeypatch.setattr(vox_slots_banded, "tile_batches", unsorted)
+    with pytest.raises(ValueError, match="w_ctile must be non-decreasing"):
+        BandedSlotVoxPipeline(mesh, spec, "cpu", band=32)
+
+
+def test_fill_rows_and_the_layout_without_a_plan():
+    """The shared memory a fill block takes, as the kernel's launch works
+    it out (whole tiles, two cell groups at 16384^3, a row too long for a
+    block refused), and the layout a wrapper builds without a plan: the
+    plan's own, with an unsorted batch_tile refused."""
+    assert fill_rows(16, 128) == (1, 128 * 17 * 4)
+    assert fill_rows(3, 128) == (1, 128 * 4 * 4)
+    assert fill_rows(512, 128) == (2, 64 * 528 * 4)
+    with pytest.raises(ValueError, match="exceeds one block"):
+        fill_rows(60000, 128)
+    tiles = np.array([0, 0, 3, 3, 3, 6])
+    got = _layout(None, torch.from_numpy(tiles.astype(np.int32)), 8, nw=4, tc=32)
+    want = fill_layout(tiles, 8, "cpu", nw=4, tc=32)
+    assert got.nbusy == want.nbusy == 3 and got.cluster == want.cluster == 1
+    assert torch.equal(got.start, want.start) and torch.equal(got.order, want.order)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        _layout(None, torch.tensor([3, 0], dtype=torch.int32), 8, nw=4, tc=32)
+
+
+def test_wide_fill_into_plain_is_the_merge():
+    """B2 in place on the CPU: the compact words XORed into the mapped
+    tiles of the grid, the other tiles untouched."""
+    n, tc = 64, 128
+    g = torch.Generator().manual_seed(4)
+    local = torch.randint(-1, tc, (5, 4, TB_LANE), generator=g, dtype=torch.int32)
+    xs = torch.randint(0, n, local.shape, generator=g, dtype=torch.int32)
+    tiles = torch.tensor([0, 0, 1, 2, 2], dtype=torch.int32)
+    tile_map = torch.tensor([30, 4, 17], dtype=torch.int32)
+    grid = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, n, n // 32), generator=g,
+                         dtype=torch.int32)
+    want = grid.clone()
+    want.view(-1, tc, n // 32)[tile_map.long()] ^= wide_fill_plain(
+        local, xs, tiles, n=n, tc=tc, num_tiles=3)
+    before = wide_fill.launches
+    got = wide_fill_into(grid, local, xs, tiles, tile_map, n=n, tc=tc)
+    assert got is grid and torch.equal(grid, want) and wide_fill.launches == before
+    with pytest.raises(ValueError, match="shape"):
+        wide_fill_into(grid[:1], local, xs, tiles, tile_map, n=n, tc=tc)
+    with pytest.raises(TypeError, match="int32"):
+        wide_fill_into(grid, local, xs, tiles, tile_map.long(), n=n, tc=tc)

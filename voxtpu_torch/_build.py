@@ -63,11 +63,12 @@ SIGNATURES = {
     # tb, tbl, n, tc, tz, num_tiles, ox, oy, oz, vs, tau_e, tau_x, dtab,
     # stream
     "vt_seg_bwd": [_P] * 7 + [_I] * 7 + [_F] * 6 + [_P, _P],
-    # local, xs, batch_tile, batch_basew, B, tb, tc, nw, bwords, num_tiles,
-    # out, stream
-    "vt_banded_fill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # local, xs, batch_tile, B, tb, tc, nw, num_tiles, out, stream
-    "vt_wide_fill": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # local, xs, batch_basew, start, order, B, tb, tc, nw, bwords,
+    # num_tiles, nbusy, cluster, out, stream
+    "vt_banded_fill": [_P] * 5 + [_I] * 8 + [_P, _P],
+    # local, xs, start, order, tile_map, B, tb, tc, nw, num_tiles, nbusy,
+    # out_tiles, cluster, out, stream
+    "vt_wide_fill": [_P] * 5 + [_I] * 8 + [_P, _P],
     # cells, ws, his, masks, cnts, batch_tile, num_batches, tb, tc, nw, g,
     # num_super, wpad, out, stream
     "vt_word_event_fill": [_P] * 6 + [_I] * 7 + [_P, _P],

@@ -73,8 +73,7 @@ def banded_state(rows, local, batch_tile, batch_basew, wide, *,
         w_rows, w_local, w_rtile, w_ctile, _flags, _xseg, w_uidx = wide
         port_wide = (tuple(_f32(r, device) for r in w_rows),
                      _i32(w_local, device), _i32(w_rtile, device),
-                     _i32(w_ctile, device),
-                     torch.from_numpy(np.array(w_uidx, np.int64)).to(device))
+                     _i32(w_ctile, device), _i32(w_uidx, device))
     return BandedState(rows=tuple(_f32(r, device) for r in rows),
                        local=_i32(local, device),
                        batch_tile=_i32(batch_tile, device),

@@ -10,14 +10,26 @@ per-touched-tile buffer.
 
 B2 computes, per batch of slots of one tile, the XOR of the suffix
 fill masks of the live slots over the whole x axis, packed into
-words. The CUDA kernel is `csrc/vox_fill.cu::vt_wide_fill` (one block
-per batch, shared-memory atomicXor; see that file for what bounds it
-on an H100). Its plain torch version, `wide_fill_plain`, computes the
-same words by counting: an `index_add_` of 1 at [cell, x], a
-cumulative sum along x, `& 1`, then packing.
+words. The CUDA kernel is `csrc/vox_fill.cu::vt_wide_fill`, B1's kernel
+over whole rows: a thread-block cluster a tile, whose blocks share the
+tile's batches and XOR-reduce their rows through distributed shared
+memory (see that file). `wide_fill` writes a compact buffer;
+`wide_fill_into` XORs the same words into a grid through the compact ->
+grid tile map, which is how the banded pipeline runs it. Its plain
+torch version, `wide_fill_plain`, computes the same words by counting:
+an `index_add_` of 1 at [cell, x], a cumulative sum along x, `& 1`,
+then packing.
+
+Both fill kernels need each tile's batches to be consecutive:
+`batch_tile` must be non-decreasing. A plan checks that once, when it
+is built, and keeps a `FillLayout` (each tile's batch range and the
+cluster size); a wrapper called without one builds it the same way from
+a host copy of `batch_tile`, which waits for the card.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -31,6 +43,12 @@ FLAG_FIRST = 1            # voxtpu's batch flags: a tile's first batch
 FLAG_LAST = 2             # and its last
 _LANE_MIN = 128           # voxtpu's output panel width in words
 _SMEM_MAX = 232448        # shared memory a block may use on an H100
+_SMEM_SM = 233472         # an H100 multiprocessor's shared memory
+_SMEM_RESERVED = 1024     # of which each resident block reserves this much
+CLUSTER_MAX = 16          # blocks a fill kernel's cluster may hold (H100)
+BATCHES_PER_BLOCK = 16    # a fill cluster's blocks: about this many batches of a busy tile each
+REGISTER_BLOCKS = 2       # fill blocks an SM's registers hold (512 threads, 64 registers)
+H100_SMS = 132
 
 
 def tile_batches(bounds: np.ndarray, tb: int):
@@ -112,18 +130,121 @@ def _check_slots(local, xs, batch_tile) -> tuple[int, int]:
     _build.expect(local, "local", torch.int32, (None, None, TB_LANE))
     _build.expect(xs, "xs", torch.int32, tuple(local.shape))
     _build.expect(batch_tile, "batch_tile", torch.int32, (local.shape[0],))
-    num_batches, tb = local.shape[0], local.shape[1] * local.shape[2]
-    if tb > 1024:
-        raise ValueError(f"batch of {tb} slots exceeds one block (1024)")
-    return num_batches, tb
+    return local.shape[0], local.shape[1] * local.shape[2]
 
 
-def _check_window(tc: int, bwords: int) -> None:
-    """The kernel keeps two (tc, bwords + 1) word arrays in shared
-    memory, at most 227 KB a block on an H100."""
-    if 2 * tc * (bwords + 1) * 4 > _SMEM_MAX:
-        raise ValueError(f"tc={tc} x {bwords} words exceeds one block's "
-                         f"shared memory ({_SMEM_MAX} bytes)")
+def fill_rows(nw: int, tc: int) -> tuple[int, int]:
+    """How a fill kernel keeps a tile's whole rows in shared memory (a
+    cell's nw words and its ceil(nw / 32) marker words, in 16-byte
+    units), as `csrc/vox_fill.cu::launch_fill` works it out: the tile's
+    cells in `groups` groups, each a cluster's, and the bytes a block
+    takes -> (groups, bytes). Raises where one row does not fit a block
+    (at most 227 KB on an H100)."""
+    row = nw + -(-nw // WORD_BITS)
+    cells = tc
+    while cells > 1 and (cells * row + 3) // 4 * 16 > _SMEM_MAX:
+        cells = (cells + 1) // 2
+    if (cells * row + 3) // 4 * 16 > _SMEM_MAX:
+        raise ValueError(f"a row of {nw} words exceeds one block's shared memory "
+                         f"({_SMEM_MAX} bytes)")
+    groups = -(-tc // cells)
+    return groups, (-(-tc // groups) * row + 3) // 4 * 16
+
+
+def _check_sorted(a: np.ndarray, name: str) -> None:
+    """Check a host plan array once, when the plan is built: the fill
+    kernels find a tile's batches as one consecutive range."""
+    a = np.asarray(a)
+    if a.size > 1 and bool((a[1:] < a[:-1]).any()):
+        raise ValueError(f"{name} must be non-decreasing (each tile's batches "
+                         "consecutive)")
+
+
+@dataclasses.dataclass(frozen=True)
+class FillLayout:
+    """Where B1's or B2's kernel finds each tile's batches, in the order
+    it takes the tiles: `order` (num_tiles,) int32 lists the `nbusy`
+    tiles that hold a batch, ascending, then the empty ones, which the
+    kernel writes as zeros without a cluster; busy tile i's batches are
+    [start[i], start[i + 1]) of the non-decreasing batch_tile (`start`
+    (nbusy + 1,) int32). `cluster` blocks share each busy tile
+    (`cluster_size`). Tensors on the batches' device. It changes where
+    the work runs, never the words."""
+
+    start: torch.Tensor
+    order: torch.Tensor
+    nbusy: int
+    cluster: int
+
+
+def cluster_size(batches: int, busy: int, device, *, nw: int, tc: int) -> int:
+    """Blocks a busy tile's cluster takes, for `batches` batches on each
+    of `busy` busy tiles on average, at nw words a row and tc cells a
+    tile: about BATCHES_PER_BLOCK a block, 1 to CLUSTER_MAX, and no more
+    than lets every busy tile's clusters (one a cell group, `fill_rows`)
+    be resident at once (one wave: the blocks a multiprocessor holds by
+    its registers and by the shared memory a block takes, times the
+    card's count, an H100's off the card). A block's fixed work (its
+    copy of the tile's rows, their reduction) grows with the cluster, so
+    the mean tile, not the busiest, sets it (a cluster sweep on the
+    washers at 512^3 and 1024^3, tools/time_fill.py --sweep)."""
+    dev = torch.device(device)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    groups, smem = fill_rows(nw, tc)
+    per_sm = max(1, min(REGISTER_BLOCKS, _SMEM_SM // (smem + _SMEM_RESERVED)))
+    wave = max(1, per_sm * sms // max(busy * groups, 1))
+    return max(1, min(CLUSTER_MAX, wave, -(-batches // BATCHES_PER_BLOCK)))
+
+
+def fill_layout(batch_tile: np.ndarray, num_tiles: int, device, *, nw: int, tc: int,
+                name: str = "batch_tile") -> FillLayout:
+    """A layout built on the host, once for a plan: checks that
+    `batch_tile` is non-decreasing (`_check_sorted`)."""
+    bt = np.asarray(batch_tile, np.int64)
+    _check_sorted(bt, name)
+    tile_start = np.searchsorted(bt, np.arange(num_tiles + 1), side="left")
+    counts = np.diff(tile_start)
+    busy = np.nonzero(counts)[0]
+    order = np.concatenate([busy, np.nonzero(counts == 0)[0]])
+    # Busy tiles' ranges are consecutive: the empty tiles between them hold none.
+    start = np.append(tile_start[busy], tile_start[busy[-1] + 1] if len(busy) else 0)
+
+    def dev32(a):
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    mean = -(-int(counts.sum()) // max(len(busy), 1))
+    return FillLayout(dev32(start), dev32(order), len(busy),
+                      cluster_size(mean, len(busy), device, nw=nw, tc=tc))
+
+
+def _layout(layout, batch_tile: torch.Tensor, num_tiles: int, *, nw: int,
+            tc: int) -> FillLayout:
+    """`layout`, checked, or, for a caller without a plan, the plan's
+    layout built from a host copy of `batch_tile` (which waits for the
+    card)."""
+    if layout is None:
+        return fill_layout(batch_tile.cpu().numpy(), num_tiles, batch_tile.device,
+                           nw=nw, tc=tc)
+    if not 1 <= layout.cluster <= CLUSTER_MAX or not 0 <= layout.nbusy <= num_tiles:
+        raise ValueError(f"cluster={layout.cluster} outside [1, {CLUSTER_MAX}] or "
+                         f"nbusy={layout.nbusy} outside [0, {num_tiles}]")
+    _build.expect(layout.start, "start", torch.int32, (layout.nbusy + 1,))
+    _build.expect(layout.order, "order", torch.int32, (num_tiles,))
+    _build.on_cuda(batch_tile, layout.start, layout.order)  # raises on another device
+    return layout
+
+
+def _launch_wide(local, xs, batch_tile, layout, tile_map, out, *, tc: int, nw: int,
+                 num_tiles: int, out_tiles: int) -> None:
+    """B2's kernel into `out`: a compact buffer (no tile map) or a grid."""
+    layout = _layout(layout, batch_tile, num_tiles, nw=nw, tc=tc)
+    _build.launch("vt_wide_fill", local.data_ptr(), xs.data_ptr(), layout.start.data_ptr(),
+                  layout.order.data_ptr(),
+                  None if tile_map is None else tile_map.data_ptr(), local.shape[0],
+                  local.shape[1] * local.shape[2], tc, nw, num_tiles, layout.nbusy,
+                  out_tiles, layout.cluster, out.data_ptr(), _build.stream_of(out))
+    wide_fill.launches += 1
 
 
 def _check_range(a: np.ndarray, name: str, lo: int, hi: int) -> None:
@@ -146,31 +267,60 @@ def wide_fill_plain(local: torch.Tensor, xs: torch.Tensor,
 
 
 def wide_fill(local: torch.Tensor, xs: torch.Tensor, batch_tile: torch.Tensor,
-              *, n: int, tc: int, num_tiles: int) -> torch.Tensor:
+              *, n: int, tc: int, num_tiles: int,
+              layout: FillLayout | None = None) -> torch.Tensor:
     """B2: whole-axis suffix fill of (B, tb_sub, 128) slots (local cell,
     x entry; local -1 = inert) of batches on compact tiles
     `batch_tile` -> (num_tiles, tc, n/32) int32 words.
 
-    `batch_tile` must lie in [0, num_tiles); it is not checked here. The
-    kernel skips a batch outside that range.
+    `batch_tile` must be non-decreasing and lie in [0, num_tiles); it is
+    not checked here (a plan checks its layout once, `fill_layout`). The
+    kernel skips a batch outside that range. `layout` is the plan's
+    `FillLayout`; without one it is built from a host copy of
+    `batch_tile` (`fill_layout`, which also checks the order).
 
     Replaces voxtpu/ops/vox_pallas.py::_pallas_kernel. A CPU tensor
     takes the plain version, a CUDA tensor launches the kernel."""
-    num_batches, tb = _check_slots(local, xs, batch_tile)
+    _check_slots(local, xs, batch_tile)
     if n % WORD_BITS:
         raise ValueError(f"N % {WORD_BITS} != 0 (n={n})")
     if not _build.on_cuda(local, xs, batch_tile):
         return wide_fill_plain(local, xs, batch_tile, n=n, tc=tc,
                                num_tiles=num_tiles)
     nw = n // WORD_BITS
-    _check_window(tc, nw)
-    out = torch.zeros((num_tiles, tc, nw), dtype=torch.int32, device=local.device)
-    if num_batches:
-        _build.launch("vt_wide_fill", local.data_ptr(), xs.data_ptr(),
-                      batch_tile.data_ptr(), num_batches, tb, tc, nw,
-                      num_tiles, out.data_ptr(), _build.stream_of(out))
-        wide_fill.launches += 1
+    fill_rows(nw, tc)  # raises where one row does not fit a block
+    out = torch.empty((num_tiles, tc, nw), dtype=torch.int32, device=local.device)
+    if num_tiles:
+        _launch_wide(local, xs, batch_tile, layout, None, out, tc=tc, nw=nw,
+                     num_tiles=num_tiles, out_tiles=num_tiles)
     return out
+
+
+def wide_fill_into(words: torch.Tensor, local: torch.Tensor, xs: torch.Tensor,
+                   batch_tile: torch.Tensor, tile_map: torch.Tensor, *, n: int,
+                   tc: int, layout: FillLayout | None = None) -> torch.Tensor:
+    """B2 in place: XOR `wide_fill`'s words of compact tile t into the
+    rows of grid tile `tile_map[t]` of `words` ((n, n, n/32) int32) and
+    return `words`. `tile_map` ((k,) int32, k compact tiles) must hold
+    distinct tiles of [0, N^2/tc): a plan checks it once. The same
+    kernel as `wide_fill` (its launches count there), reading and
+    writing the mapped rows once: no compact buffer and no merge."""
+    _check_slots(local, xs, batch_tile)
+    if n % WORD_BITS or (n * n) % tc:
+        raise ValueError(f"need N % {WORD_BITS} == 0 and tc dividing N^2 (n={n}, tc={tc})")
+    nw = n // WORD_BITS
+    _build.expect(words, "words", torch.int32, (n, n, nw))
+    _build.expect(tile_map, "tile_map", torch.int32, (None,))
+    num_tiles = tile_map.shape[0]
+    if not _build.on_cuda(words, local, xs, batch_tile, tile_map):
+        words.view(-1, tc, nw)[tile_map.long()] ^= wide_fill_plain(
+            local, xs, batch_tile, n=n, tc=tc, num_tiles=num_tiles)
+        return words
+    fill_rows(nw, tc)  # raises where one row does not fit a block
+    if num_tiles:
+        _launch_wide(local, xs, batch_tile, layout, tile_map, words, tc=tc, nw=nw,
+                     num_tiles=num_tiles, out_tiles=(n * n) // tc)
+    return words
 
 
 wide_fill.launches = 0

@@ -13,19 +13,22 @@ The slot/batch layout is identical to voxtpu's, defaults included
 arrays one to one.
 
 Per call (`banded_total`): the elementwise `_slot_emit` (torch ops),
-kernel B1 over the banded batches into the full grid, and, for the
-wide candidates, kernel B2 into a compact per-touched-tile buffer that
-is XOR-merged into the grid (in place: the grid is a fresh tensor with
-no other owner). Fragments that left their baked bands (vertex drift)
-are dropped and counted in `overflow`; nonzero means rebuild.
+kernel B1 over the banded batches into the full grid (every word
+written once, no zero fill), and, for the wide candidates, kernel B2
+XORed straight into the grid's touched tiles through the compact ->
+grid tile map (`wide_fill_into`; voxtpu fills a compact buffer and
+merges it with a gather, XOR and scatter). Fragments that left their
+baked bands (vertex drift) are dropped and counted in `overflow`;
+nonzero means rebuild.
 
 B1 replaces the Pallas `_banded_kernel`. The TPU mechanisms around
 it — the step/flag scalars, byte-packed lane offsets for SMEM, the
 MXU pack tables and the 128-lane supertile output panels — are not
 needed: the CUDA kernel takes per-slot (local cell, x) and per-batch
-(tile, base word) directly (`csrc/vox_fill.cu::vt_banded_fill`). The
-supertile group size survives only as the unit of the PACK padding,
-so that the batch layout stays voxtpu's.
+(tile, base word) directly (`csrc/vox_fill.cu::vt_banded_fill`), and
+each tile's batch range and cluster size (`FillLayout`), which the plan
+builds once. The supertile group size survives only as the unit of the
+PACK padding, so that the batch layout stays voxtpu's.
 """
 
 from __future__ import annotations
@@ -39,10 +42,10 @@ from voxtpu_torch import _build
 from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS,
-                                       _check_range, _check_slots,
-                                       _check_window, _group_factor,
-                                       suffix_parity_words, tile_batches,
-                                       wide_fill)
+                                       FillLayout, _check_range, fill_rows,
+                                       _check_slots, _group_factor, _layout,
+                                       fill_layout, suffix_parity_words,
+                                       tile_batches, wide_fill_into)
 from voxtpu_torch.ops.vox_slots import (_batch_index, _exact_candidates,
                                         _slot_emit, _slot_rows)
 
@@ -61,13 +64,17 @@ class BandedState:
     batch_tile, batch_basew: (B,) int32 tile and 32-aligned base word;
     wide: None, or (w_rows, w_local, w_rtile, w_ctile, w_uidx) — the
     whole-axis batches' rows and locals, their real and compact tiles,
-    and the compact -> real tile map."""
+    and the compact -> real tile map (int32); layout, wide_layout: the
+    plan's `FillLayout`s of B1 and B2 (None: the wrappers build them
+    from host copies of the batch tiles, every call)."""
 
     rows: tuple
     local: torch.Tensor
     batch_tile: torch.Tensor
     batch_basew: torch.Tensor
     wide: tuple | None
+    layout: FillLayout | None = None
+    wide_layout: FillLayout | None = None
 
 
 def banded_fill_plain(local: torch.Tensor, xs: torch.Tensor,
@@ -83,7 +90,8 @@ def banded_fill_plain(local: torch.Tensor, xs: torch.Tensor,
 
 def banded_fill(local: torch.Tensor, xs: torch.Tensor,
                 batch_tile: torch.Tensor, batch_basew: torch.Tensor, *,
-                n: int, tc: int, band: int) -> torch.Tensor:
+                n: int, tc: int, band: int,
+                layout: FillLayout | None = None) -> torch.Tensor:
     """B1: banded suffix fill -> (n, n, n/32) int32 words.
 
     Slots are (B, tb_sub, 128) (local cell, x entry); batch b fills the
@@ -91,9 +99,13 @@ def banded_fill(local: torch.Tensor, xs: torch.Tensor,
     band [32 * batch_basew[b], 32 * batch_basew[b] + band) — every
     later word is flipped by the per-cell carry. Other slots are inert.
 
-    `batch_tile` must lie in [0, N^2/tc) and `batch_basew` in
-    [0, (N - band)/32]; they are not checked here (a pipeline checks its
-    plan once, when it is built). The kernel skips a batch outside them.
+    `batch_tile` must be non-decreasing and lie in [0, N^2/tc), and
+    `batch_basew` in [0, (N - band)/32]; they are not checked here (a
+    pipeline checks its plan once, when it is built, and keeps its
+    `FillLayout`; without one it is built from a host copy of
+    `batch_tile`, which waits for the card). The kernel
+    skips a batch outside them. Every word of the grid is written
+    (tiles without a batch as zeros), so it is allocated empty.
 
     Replaces voxtpu/ops/vox_slots_banded.py::_banded_kernel. A CPU
     tensor takes the plain version, a CUDA tensor launches the kernel."""
@@ -107,15 +119,15 @@ def banded_fill(local: torch.Tensor, xs: torch.Tensor,
     if not _build.on_cuda(local, xs, batch_tile, batch_basew):
         return banded_fill_plain(local, xs, batch_tile, batch_basew, n=n,
                                  tc=tc, band=band)
-    nw, bwords = n // WORD_BITS, band // WORD_BITS
-    _check_window(tc, bwords)
-    out = torch.zeros((n, n, nw), dtype=torch.int32, device=local.device)
-    if num_batches:
-        _build.launch("vt_banded_fill", local.data_ptr(), xs.data_ptr(),
-                      batch_tile.data_ptr(), batch_basew.data_ptr(),
-                      num_batches, tb, tc, nw, bwords, (n * n) // tc,
-                      out.data_ptr(), _build.stream_of(out))
-        banded_fill.launches += 1
+    nw, num_tiles = n // WORD_BITS, (n * n) // tc
+    fill_rows(nw, tc)  # raises where one row does not fit a block
+    layout = _layout(layout, batch_tile, num_tiles, nw=nw, tc=tc)
+    out = torch.empty((n, n, nw), dtype=torch.int32, device=local.device)
+    _build.launch("vt_banded_fill", local.data_ptr(), xs.data_ptr(),
+                  batch_basew.data_ptr(), layout.start.data_ptr(), layout.order.data_ptr(),
+                  num_batches, tb, tc, nw, band // WORD_BITS, num_tiles, layout.nbusy,
+                  layout.cluster, out.data_ptr(), _build.stream_of(out))
+    banded_fill.launches += 1
     return out
 
 
@@ -144,16 +156,15 @@ def emit_slots(state: BandedState, origin: torch.Tensor, vs: torch.Tensor,
 def banded_total(state: BandedState, origin: torch.Tensor, vs: torch.Tensor,
                  *, n: int, tc: int, band: int):
     """One call of the pipeline (`vox_slots_banded.py:241-270`):
-    returns (words (n, n, n/32) int32, overflow () int64)."""
+    returns (words (n, n, n/32) int32, overflow () int64). B2 XORs into
+    B1's grid in place (the grid is a fresh tensor with no other owner)."""
     (local_k, xs), wide, overflow = emit_slots(state, origin, vs, n=n, tc=tc,
                                                band=band)
     words = banded_fill(local_k, xs, state.batch_tile, state.batch_basew,
-                        n=n, tc=tc, band=band)
+                        n=n, tc=tc, band=band, layout=state.layout)
     if wide is not None:
-        w_ctile, w_uidx = state.wide[3], state.wide[4]
-        w_words = wide_fill(*wide, w_ctile, n=n, tc=tc,
-                            num_tiles=w_uidx.shape[0])
-        words.view(-1, tc, n // WORD_BITS)[w_uidx] ^= w_words
+        wide_fill_into(words, *wide, state.wide[3], state.wide[4], n=n, tc=tc,
+                       layout=state.wide_layout)
     return words, overflow
 
 
@@ -312,7 +323,7 @@ class BandedSlotVoxPipeline:
 
         # Wide fallback: whole-axis batches over a compact tile set (the
         # wide candidates touch k << num_tiles tiles).
-        wide = None
+        wide, wide_layout = None, None
         if self.num_wide:
             orderw = np.argsort(c_w // tc, kind="stable")
             c_w, t_w = c_w[orderw], t_w[orderw]
@@ -329,19 +340,26 @@ class BandedSlotVoxPipeline:
             w_rows, w_local = _slot_rows(w_tri_b, w_local_b, v0, v1, v2,
                                          TB_SUB, device)
             wide = (w_rows, w_local, dev32(uidx[w_ctiles]), dev32(w_ctiles),
-                    torch.from_numpy(uidx.astype(np.int64)).to(self.device))
+                    dev32(uidx))
+            wide_layout = fill_layout(w_ctiles, k, self.device, nw=nw, tc=tc,
+                                      name="w_ctile")
             self.num_batches += len(w_ctiles)
 
+        # The grid's geometry on the device, made once: a tensor made from
+        # host values copies them synchronously, which waits for the card.
+        self._origin = spec.origin_tensor(self.device)
+        self._voxel_size = spec.voxel_size_tensor(self.device)
         self.state = BandedState(rows=rows, local=local,
                                  batch_tile=dev32(batch_tile),
                                  batch_basew=dev32(batch_base // WORD_BITS),
-                                 wide=wide)
+                                 wide=wide,
+                                 layout=fill_layout(batch_tile, num_tiles, self.device,
+                                                    nw=nw, tc=tc),
+                                 wide_layout=wide_layout)
 
     def words(self):
         """One call: (words (n, n, n/32) int32, overflow () int64)."""
-        return banded_total(self.state,
-                            self.spec.origin_tensor(self.device),
-                            self.spec.voxel_size_tensor(self.device),
+        return banded_total(self.state, self._origin, self._voxel_size,
                             n=self.spec.n, tc=self.tc, band=self.band)
 
     def __call__(self) -> VoxelGrid:
@@ -350,6 +368,5 @@ class BandedSlotVoxPipeline:
             raise RuntimeError(
                 f"{int(overflow)} fragments left their baked x-bands "
                 "(coords drifted); rebuild the pipeline")
-        return VoxelGrid(words=words,
-                         origin=self.spec.origin_tensor(self.device),
-                         voxel_size=self.spec.voxel_size_tensor(self.device))
+        return VoxelGrid(words=words, origin=self._origin.clone(),
+                         voxel_size=self._voxel_size.clone())
