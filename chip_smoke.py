@@ -76,13 +76,31 @@ and no result line:
    on each washer and launch B14 once a call; B14 is held against its
    plain version there and timed on washer_a at 512^3 (both ways); at 2048^3 on
    washer_a (a 1.07 GB grid) it must equal `resolve_fragments` on the
-   same fragments, and is timed. Last, the CLI with -t 1 (the plain
-   route) on the card at n=128 on two small washers must equal -t 2:
-   grid xor 0, SDF bitwise.
+   same fragments, and is timed. voxtpu's two cross-check routes on B2
+   at 512^3 on washer_a: SlotVoxPipeline and the suffix route of a
+   PallasVoxPlan at seg = 512 and 256 (on the word-event route's
+   fragments) must each equal the banded grid (xor popcount 0) and
+   launch B2 once a call (counted and printed, with their plan builds
+   and per-call times). Last, the CLI with -t 1 (the plain route) on
+   the card at n=128 on two small washers must equal -t 2: grid xor 0,
+   SDF bitwise.
 4c. The flood-step probe P1 through its runner
    (`tools/probe_jfa_micro.py`) at 512^3 on ball-shell seeds, k = 4 and
    128: every variant timed, `hoist` / `hoistv` bitwise equal to B3;
    `hoistv` held against its plain version and timed beside it.
+4d. The CLI with --trace at 128^3 on two small washers: the trace that
+   torch.profiler writes must hold the CLI's scopes as named ranges and
+   the fill kernel (suffix_fill_kernel, B1 and B2). Then the CLI at
+   1280^3 on phase 4's two washers (-t 2 -p 1 -s, phase 4b's state
+   freed): its SDF must take the wide (hi, lo) flood (torch ops): B1
+   and B2 launch, B3-B6 never, and the [CudaJFA::wide] scope prints;
+   the field must pass tools/check_jfa_wide.py's check_wide_field:
+   signs follow the folded occupancy, sdf == 0 exactly on the boundary
+   mask and nowhere else, and on 1024 seeded sample voxels |sdf| is
+   never below the brute-force nearest boundary seed (same float
+   formula) and above it by more than rtol 1e-5 at under 1% of them.
+   Prints the phase's wall time, the JFA's time per step and the peak
+   device memory.
 5. Training kernels against their plain torch versions at n=128 on a
    jittered icosphere(4), soft plan with pad 2: B7 (fused forward)
    occupancy within 1e-4; B8 (fused backward) table cotangents for a
@@ -170,6 +188,8 @@ PLAIN_CLI_N = 128       # phase 4b's -t 1 run on the card
 WQ_BIG_N = 2048         # phase 4b's B14 grid on washer_a alone
 PROBE_N, PROBE_KS = 512, (4, 128)  # phase 4c's flood-step probe
 PROBE_ROW = "hoistv"    # the probe variant whose time the kernels line carries
+WIDE_N = 1280           # phase 4d: the CLI's SDF on the wide (hi, lo) flood
+TRACE_N = 128           # phase 4d: the CLI with --trace
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its operations over their
@@ -1625,6 +1645,8 @@ def word_event_route(dev, errs, timings, bounds, meshes):
                   f"DeviceVoxPipeline {t3 - t2:.2f} s; per call: DeviceVoxPipeline.words() "
                   f"{pipe_ms:.3f} ms, banded words() {banded_ms:.3f} ms; xor 0, overflow 0")
             del plan, grid, words
+            if n == MAIN_N and mesh is meshes[0]:
+                cross_check_routes(mesh, spec, dev, pipe.frag_plan, want)
             wq_launches += wq_route(errs, timings, bounds, mesh, spec, pipe.frag_plan, want,
                                     timed=n == MAIN_N and mesh is meshes[0])
             if n == JFA_N:
@@ -1633,6 +1655,49 @@ def word_event_route(dev, errs, timings, bounds, meshes):
             del banded, pipe, want
         torch.cuda.empty_cache()
     return launches, wq_launches, kept, kept_spec
+
+
+def cross_check_routes(mesh, spec, dev, frag_plan, want) -> None:
+    """Phase 4b: voxtpu's two cross-check routes on B2 at MAIN_N on one
+    washer: `SlotVoxPipeline` (every candidate a slot, whole-axis fill)
+    and the suffix route of a `PallasVoxPlan` at seg = n and n/2
+    (`voxelize(backend="word_event", plan=...)`), on the same fragments
+    as the word-event route. Each must launch B2 once a call and equal
+    the banded grid `want` (xor popcount 0); their plan builds and
+    per-call times (CUDA events, warm, median of 5) are printed."""
+    import torch
+
+    from voxtpu_torch.ops import vox_cuda
+    from voxtpu_torch.ops.vox import voxelize
+    from voxtpu_torch.ops.vox_slots import SlotVoxPipeline
+
+    B2, n = vox_cuda.wide_fill, spec.n
+    routes = []
+    t0 = time.perf_counter()
+    slots = SlotVoxPipeline(mesh, spec, dev)
+    routes.append((f"SlotVoxPipeline ({slots.num_candidates:,} candidates, "
+                   f"{slots.num_batches:,} batches)", time.perf_counter() - t0, slots.words))
+    for seg in (n, n // 2):
+        t0 = time.perf_counter()
+        plan = vox_cuda.PallasVoxPlan(mesh, spec, dev, frag_plan=frag_plan, seg=seg)
+        torch.cuda.synchronize()
+        routes.append((f"PallasVoxPlan seg={seg} ({plan.num_fragments:,} fragments, "
+                       f"{plan.num_batches:,} batches)", time.perf_counter() - t0,
+                       lambda plan=plan: voxelize(mesh, spec, "word_event", device=dev,
+                                                  plan=plan).words))
+    before = B2.launches
+    for what, build_s, call in routes:
+        x = xor_popcount(call(), want)
+        require(x == 0, f"{mesh.name} {n}^3: {what} differs from the banded grid "
+                f"(xor popcount {x})")
+        with uncounted(B2):
+            ms = cuda_ms(call)
+        print(f"{mesh.name} {n}^3 {what}: built in {build_s:.2f} s, {ms:.3f} ms a call, "
+              "xor 0 against the banded grid")
+    launched = B2.launches - before
+    require(launched == len(routes), f"the cross-check routes launched B2 {launched} "
+            f"times, not {len(routes)}")
+    print(f"B2 launches on the cross-check routes: {launched}")
 
 
 def jfa_rows(dev, errs, timings, bounds, words, spec):
@@ -1708,22 +1773,28 @@ def jfa_rows(dev, errs, timings, bounds, words, spec):
     return launches["B4"]
 
 
+def _load_tool(name: str):
+    """A script of tools/ loaded by path, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools",
+                                                                     f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def probe_run(dev, errs, timings, bounds) -> int:
     """Phase 4c: the probe runner `tools/probe_jfa_micro.py` at PROBE_N
     on its ball-shell seeds for PROBE_KS (every variant timed, hoist and
     hoistv asserted bitwise equal to B3 there); then PROBE_ROW held
     against its plain version and timed beside it. Returns P1's
     launches in the runner's run."""
-    import importlib.util
-
     import torch
 
     from voxtpu_torch.ops import jfa_probe
 
-    spec = importlib.util.spec_from_file_location(
-        "probe_jfa_micro", os.path.join(ROOT, "tools", "probe_jfa_micro.py"))
-    runner = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(runner)
+    runner = _load_tool("probe_jfa_micro")
     P1 = jfa_probe.flood_probe
     P1.launches = 0
     try:
@@ -1789,6 +1860,116 @@ def plain_cli_on_card(dev) -> None:
     require(bitwise_equal(plain.sdf, cuda.sdf), "-t 1 SDF differs from -t 2")
     print(f"CLI -t 1 --device {dev} at {PLAIN_CLI_N}^3: grid ({plain.grids[0].count():,} "
           "voxels) xor 0 and SDF bitwise equal to -t 2")
+
+
+class _Tee:
+    """A stdout that also keeps what it is given."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def traced_cli(dev) -> None:
+    """Phase 4d: the CLI with --trace at TRACE_N on two small washers: the
+    trace `torch.profiler` writes must hold the CLI's scopes as named
+    ranges and the fill kernel's launches (B1 and B2 are
+    `csrc/vox_fill.cu::suffix_fill_kernel`)."""
+    import glob
+
+    from voxtpu_torch import cli
+    from voxtpu_torch.mesh import procedural
+    from voxtpu_torch.mesh.mesh import Mesh
+    from voxtpu_torch.mesh.obj_io import export_mesh
+
+    with tempfile.TemporaryDirectory(prefix="voxtpu_torch_trace_") as tmp:
+        paths = []
+        for name, center in (("ring_a", (2.0, 2.0, 2.0)), ("ring_b", (2.5, 2.0, 2.0625))):
+            c, f = procedural.washer(0.75, 1.0, 0.25, 96, center=center)
+            paths.append(os.path.join(tmp, f"{name}.obj"))
+            export_mesh(paths[-1], Mesh(name=name, coords=c, faces=f, faces_normals=f))
+        log_dir = os.path.join(tmp, "trace")
+        rc = cli.main([*paths, "-n", str(TRACE_N), "-t", "2", "-p", "1", "-s",
+                       "--device", str(dev), "--trace", log_dir])
+        require(rc == 0, f"the traced CLI exited {rc}")
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        require(len(files) == 1, f"--trace wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = {e.get("name") for e in events if e.get("cat") == "kernel"}
+    scopes = ("CudaVox(ring_a.obj)", "CudaVox(ring_b.obj)", "CudaVox::planning",
+              "CudaVox::processing", "CudaCSG", "CudaJFA")
+    missing = [sc for sc in scopes if sc not in names]
+    require(not missing, f"the trace lacks the CLI scopes {missing}")
+    fills = sorted(k for k in kernels if "suffix_fill_kernel" in k)
+    require(fills, "the trace holds no fill kernel (suffix_fill_kernel)")
+    ours = sorted({k.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+                   for k in kernels if "at::native" not in k})
+    print(f"CLI --trace at {TRACE_N}^3: {size:,} bytes, {len(events):,} events, "
+          f"{len(kernels)} kernel names; the CLI's scopes {', '.join(scopes)} and "
+          f"{fills[0]} present; the kernels that are not PyTorch's: {', '.join(ours)}")
+
+
+def wide_cli(dev, paths) -> None:
+    """Phase 4d: the CLI at WIDE_N (-t 2 -p 1 -s) on phase 4's two
+    washers. The SDF must come from the wide flood: B1 and B2 launch, B3,
+    B4, B5 and B6 never, and the `[CudaJFA::wide]` scope prints; the
+    field passes `tools/check_jfa_wide.py::check_wide_field` (signs as
+    the folded occupancy, sdf == 0 exactly on the boundary mask, 1024
+    seeded samples never below the brute-force nearest seed and above it
+    by more than rtol 1e-5 at under 1%). Prints the phase's wall time,
+    the JFA scope's time per step and the peak device memory."""
+    import re
+
+    import torch
+
+    from voxtpu_torch import cli
+    from voxtpu_torch.ops import jfa_cuda as J
+    from voxtpu_torch.ops import vox_cuda, vox_slots_banded
+
+    checker = _load_tool("check_jfa_wide")
+    kernels = {"B1": vox_slots_banded.banded_fill, "B2": vox_cuda.wide_fill,
+               "B3": J.flood_step, "B4": J.flood_step_rows, "B5": J.sdf_from_seed,
+               "B6": J.flood_step_pipe}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = cli.run([*paths, "-n", str(WIDE_N), "-t", "2", "-p", "1", "-s"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"CLI -n {WIDE_N} -t 2 -p 1 -s: wall {wall:.1f} s; launches {launches}; peak "
+          f"device memory {peak / 2**30:.3f} GiB")
+    require(launches["B1"] > 0 and launches["B2"] > 0, "the CLI at "
+            f"{WIDE_N}^3 did not launch B1 and B2")
+    require(all(launches[k] == 0 for k in ("B3", "B4", "B5", "B6")),
+            f"the CLI at {WIDE_N}^3 launched a packed flood kernel: {launches}")
+    m = re.search(r"\[CudaJFA::wide\]: ([\d.]+) ms", "".join(tee.kept))
+    require(m is not None, "no [CudaJFA::wide] scope: the SDF did not take the wide flood")
+    occ = result.grids[0].to_dense()
+    t0 = time.perf_counter()
+    try:
+        checks = checker.check_wide_field(result.sdf, occ, result.spec, samples=1024, seed=0)
+    except checker.CheckFailed as e:
+        raise SmokeFailure(f"the {WIDE_N}^3 SDF: {e}") from e
+    steps = WIDE_N.bit_length() - 1
+    print(f"SDF at {WIDE_N}^3 ({int(occ.sum()):,} voxels): {checks} (checked in "
+          f"{time.perf_counter() - t0:.1f} s); the wide JFA took {float(m.group(1)):.1f} ms, "
+          f"{float(m.group(1)) / steps:.1f} ms a step over its {steps} steps (init and "
+          "output pass included)")
 
 
 def run() -> int:
@@ -2134,6 +2315,18 @@ def run() -> int:
     # ---- 4c. the flood-step probe P1 ----------------------------------------------
     phase(f"4c. flood-step probe P1 at {PROBE_N}^3, k = {PROBE_KS}")
     launches["P1"] = probe_run(dev, errs, timings, bounds)
+
+    # ---- 4d. the wide flood above N = 1024, and --trace ---------------------------
+    phase(f"4d. the CLI's SDF at {WIDE_N}^3 on the wide flood; --trace at {TRACE_N}^3")
+    t_phase = time.perf_counter()
+    traced_cli(dev)
+    with tempfile.TemporaryDirectory(prefix="voxtpu_torch_wide_") as tmp:
+        paths = [os.path.join(tmp, "washer_a.obj"), os.path.join(tmp, "washer_b.obj")]
+        export_mesh(paths[0], mesh_of(c, f, "washer_a"))
+        export_mesh(paths[1], mesh_of(shifted, f, "washer_b"))
+        wide_cli(dev, paths)
+    torch.cuda.empty_cache()
+    print(f"phase 4d: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 5. training kernels vs plain ------------------------------------------
     phase(f"5. training kernels against their plain versions (n={KERNEL_N})")

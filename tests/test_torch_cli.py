@@ -126,7 +126,7 @@ def test_cli_device_cuda_without_a_card_exits_nonzero(tmp_path, capsys):
 def test_cli_unported_backends_exit_with_message(tmp_path, capsys, t):
     paths = _write_meshes(tmp_path)
     assert cli.main([paths[0], "-t", t, "--device", "cpu"]) != 0
-    assert "not ported yet" in capsys.readouterr().err
+    assert "does not carry voxtpu's native C++ backend" in capsys.readouterr().err
     assert cli.main(["--device", "cpu"]) != 0             # no input file
 
 
@@ -143,6 +143,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "import voxtpu_torch.ops.soft_vox_cuda, voxtpu_torch.models.fit\n"
         "import voxtpu_torch.models.csg_fit, voxtpu_torch.examples.fit_vertices\n"
         "import voxtpu_torch.ops.vox_word_event, voxtpu_torch.ops.jfa_cuda\n"
+        "import voxtpu_torch.ops.vox_slots, voxtpu_torch.utils.trace\n"
+        "import voxtpu_torch.utils.logging\n"
         "rc = voxtpu_torch.cli.main(sys.argv[1:])\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "sys.exit(rc)\n"

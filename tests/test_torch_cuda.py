@@ -674,3 +674,51 @@ def test_seg_engine_gradient_on_the_card_matches_the_cpu(dev):
         fit._loss_fn(fit._fwd(x), fit.target).backward()
         grads.append(x.grad.cpu())
     assert _max_err(*grads) <= 1e-3 * float(grads[1].abs().max())
+
+
+@pytest.mark.parametrize("name,n,seg", [("torus", 128, None), ("torus", 128, 64),
+                                        ("icosahedron", 192, 96)])
+def test_cross_check_routes_on_b2_match_banded_and_oracle(dev, name, n, seg):
+    """voxtpu's two cross-check routes on the card: `SlotVoxPipeline` and
+    the suffix route of a `PallasVoxPlan` (seg = n or n/2) each launch B2
+    once a call and equal the banded grid and the oracle (xor 0)."""
+    make = {"torus": lambda: procedural.torus(1.0, 0.35, 48, 24),
+            "icosahedron": procedural.icosahedron}[name]
+    from voxtpu_torch.ops.vox_slots import SlotVoxPipeline
+
+    mesh = _mesh(make, name)
+    spec = GridSpec.fit(mesh.coords, n)
+    banded, overflow = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, dev).words()
+    assert int(overflow) == 0
+    oracle = pack_bits(torch.from_numpy(voxelize_ref(mesh, spec))).to(dev)
+    before = vox_cuda.wide_fill.launches
+    slots = SlotVoxPipeline(mesh, spec, dev, seg=seg if seg == n else None).words()
+    plan = vox_cuda.PallasVoxPlan(mesh, spec, dev, seg=seg)
+    suffix = voxelize(mesh, spec, "word_event", device=dev, plan=plan).words
+    assert vox_cuda.wide_fill.launches == before + 2
+    for got in (slots, suffix):
+        assert torch.equal(got, banded) and torch.equal(got, oracle)
+
+
+@pytest.mark.parametrize("n", [64, 96])
+def test_wide_flood_on_the_card_equals_the_cpu(dev, n):
+    """The wide (hi, lo) flood in torch ops on the card, bitwise the same
+    flood on the CPU (non-dyadic geometry: both round term for term); a
+    small byte budget (z-chunks of 2 planes) changes nothing; on dyadic
+    geometry, where every float distance is exact and orders seeds as the
+    integer metric does, bitwise the packed kernels' field."""
+    from voxtpu_torch.ops.jfa import jfa_wide
+
+    g = np.random.default_rng(n)
+    occ = torch.from_numpy(g.random((n, n, n)) < 0.02)
+    spec = GridSpec(n=n, origin=(0.1, -0.23, 0.37), voxel_size=0.0731)
+    cpu = jfa(occ, spec, backend="plain", encoding="wide")
+    got = jfa(occ.to(dev), spec, backend="plain", encoding="wide")
+    assert got.is_cuda
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    small = jfa_wide(occ.to(dev), spec, budget=2 * 16 * n * n)
+    assert torch.equal(small.view(torch.int32), got.view(torch.int32))
+    dyadic = GridSpec(n=n, origin=(0.5, -2.0, 1.25), voxel_size=0.0625)
+    wide = jfa(occ.to(dev), dyadic, backend="plain", encoding="wide")
+    packed = jfa(occ.to(dev), dyadic, backend="cuda")
+    assert torch.equal(wide.view(torch.int32), packed.view(torch.int32))

@@ -331,8 +331,13 @@ def test_jfa_from_voxelgrid_and_reference_backend():
 
 def test_jfa_rejects_unsupported_requests():
     spec = GridSpec(n=2048, origin=(0.0,) * 3, voxel_size=1.0)
-    with pytest.raises(ValueError, match="N <= 1024"):
+    # Above N = 1024 jfa_cuda takes the wide flood (tests/test_torch_jfa_wide.py);
+    # the grid must still match the spec, and packed seeds stop at 1024.
+    with pytest.raises(ValueError, match="does not match N=2048"):
         jfa_cuda(torch.zeros((2048, 1, 1), dtype=torch.bool), spec)
+    with pytest.raises(ValueError, match="10-bit"):
+        jfa_cuda(torch.empty((2048,) * 3, dtype=torch.bool, device="meta"), spec,
+                 encoding="packed")
     with pytest.raises(ValueError, match="unknown backend"):
         jfa(torch.zeros((32,) * 3, dtype=torch.bool),
             GridSpec(n=32, origin=(0.0,) * 3, voxel_size=1.0), backend="xla")

@@ -12,25 +12,30 @@ filenames    input meshes (positional or -i)
 -t           backend 0=reference (NumPy oracle) 1=plain (voxtpu's xla:
              FragmentPlan + resolve, and the JFA flood's plain torch
              versions) 2=cuda (the banded voxelizer and the JFA flood
-             on the hand-written kernels; default). 3 (native) is not
-             ported yet.
+             on the hand-written kernels; default). 3 (voxtpu's native
+             C++ backend) is refused: the port does not carry it.
 -o           output filename (default out.obj)
 -p           CSG op 0=void 1=union 2=intersection 3=difference
 -e           export phase OBJs into --out-dir
--s           compute SDF (JFA) on the folded grid
+-s           compute SDF (JFA) on the folded grid: packed seeds up to
+             N = 1024, the wide (hi, lo) flood above (torch ops, up
+             to N = 16384 as device memory allows)
 -b           banded vox tile rows (TILE_CELLS; default 128)
 -m           benchmark iterations (>1: only mesh[0] is voxelized each
              iteration and CSG-folded into a scratch grid)
 --device     torch device (default cuda). `cpu` runs the kernels'
              plain torch versions; `cuda` without a CUDA device exits
              with an error, it never falls back to the CPU.
+--trace DIR  write a torch.profiler Chrome trace of the pipeline into
+             DIR (a named range for each profiling scope, and the
+             card's kernels; utils/trace.py)
 ==========  ======================================================
 
 Profiling scopes print ``[Label]: X ms`` lines (``CudaVox(mesh.obj)``,
 ``CudaVox::planning``, ``CudaVox::processing``, ``CudaCSG``,
-``CudaJFA``; ``Plain*`` for -t 1, ``Ref*`` for -t 0). Exports are
-named after the backend (``cuda_``, ``plain_``, ``reference_``).
-voxtpu's ``--trace`` is not ported yet.
+``CudaJFA``, and ``CudaJFA::wide`` inside it where the SDF takes the
+wide flood; ``Plain*`` for -t 1, ``Ref*`` for -t 0). Exports are named
+after the backend (``cuda_``, ``plain_``, ``reference_``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import argparse
 import dataclasses
 import os
 import sys
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -82,6 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default="out")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the pipeline into DIR")
     return p
 
 
@@ -104,15 +112,20 @@ def run(argv=None) -> PipelineResult:
     if args.block_size is not None and args.block_size % 16 != 0:
         raise UsageError("Thread per voxel must be a multiple of 16")
     if args.type not in PORTED:
-        raise UsageError(f"-t {args.type} ({BACKENDS[args.type]}) is not "
-                         "ported yet; use -t 0 (reference), -t 1 (plain) or "
-                         "-t 2 (cuda)")
+        raise UsageError(f"-t {args.type} ({BACKENDS[args.type]}): the port does not "
+                         "carry voxtpu's native C++ backend; use -t 0 (reference), "
+                         "-t 1 (plain) or -t 2 (cuda)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise UsageError("--device cuda: no CUDA device is available "
                          "(--device cpu runs the plain torch versions)")
     if device.type not in ("cuda", "cpu"):
         raise UsageError(f"--device {args.device}: expected cuda or cpu")
+    if args.trace:
+        from voxtpu_torch.utils.trace import trace
+
+        with trace(args.trace):
+            return _run_pipeline(args, filenames, device)
     return _run_pipeline(args, filenames, device)
 
 
@@ -124,7 +137,7 @@ def _run_pipeline(args, filenames, device) -> PipelineResult:
     )
     from voxtpu_torch.mesh.obj_io import export_mesh, import_mesh
     from voxtpu_torch.ops.csg import csg
-    from voxtpu_torch.ops.jfa import jfa
+    from voxtpu_torch.ops.jfa import jfa, seed_encoding
     from voxtpu_torch.ops.vox import FragmentPlan, voxelize
     from voxtpu_torch.ops.vox_cuda import TILE_CELLS
     from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
@@ -193,8 +206,13 @@ def _run_pipeline(args, filenames, device) -> PipelineResult:
                     voxels_grid_to_mesh_compressed(occ, spec))
 
         if args.sdf:
-            with ProfilingScope(vox_label.replace("Vox", "JFA")) as ps:
-                sdf = jfa(grids[0], spec, backend=backend)
+            jfa_label = vox_label.replace("Vox", "JFA")
+            wide = backend != "reference" and seed_encoding(spec.n, backend=backend) == "wide"
+            with ProfilingScope(jfa_label) as ps:
+                inner = ProfilingScope(f"{jfa_label}::wide") if wide else nullcontext(ps)
+                with inner as pi:
+                    sdf = jfa(grids[0], spec, backend=backend)
+                    pi.observe(sdf)
                 ps.observe(sdf)
 
             if do_export:

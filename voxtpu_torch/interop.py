@@ -12,8 +12,11 @@ against voxtpu's.
   `local`, `batch_tile`, `batch_basew` and the `wide` tuple of
   `voxtpu.ops.vox_slots_banded.BandedSlotVoxPipeline`;
 - the word-event plan's event panels (`voxtpu.ops.vox_pallas_we.
-  WordEventVoxPlan`) and the work-queue plan's lanes and runs
+  WordEventVoxPlan`), the suffix route's batches (`voxtpu.ops.
+  vox_pallas.PallasVoxPlan`) and the work-queue plan's lanes and runs
   (`voxtpu.ops.vox_pallas_wq.WorkQueueVoxPlan`);
+- the wide JFA's (hi, lo) seed state (`voxtpu.ops.jfa.
+  jfa_init_seed_wide`, `_flood_step_seed_wide`);
 - the soft engines' slot layouts (`voxtpu.ops.soft_vox_fused.
   FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`,
   `voxtpu.ops.soft_vox_seg.SegSoftPlan`);
@@ -32,6 +35,7 @@ from voxtpu_torch.ops.soft_vox_cuda import SoftCudaPlan
 from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
 from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedState
+from voxtpu_torch.ops.vox_cuda import PallasVoxPlan
 from voxtpu_torch.ops.vox_word_event import WordEventVoxPlan
 from voxtpu_torch.ops.vox_work_queue import WorkQueueVoxPlan
 
@@ -99,6 +103,28 @@ def word_event_plan_from_voxtpu(plan_arrays, *, device) -> WordEventVoxPlan:
     return WordEventVoxPlan.from_layout(
         spec, device, cells, ws, his, masks, cnts, batch_tile, flags, tile_mask,
         tc=int(p.tc), num_events=int(p.num_events), num_fragments=int(p.num_fragments))
+
+
+def pallas_plan_from_voxtpu(plan, *, device) -> PallasVoxPlan:
+    """The port's suffix-route plan on voxtpu's batches.
+
+    `plan` is voxtpu's `PallasVoxPlan`, or any object with its attribute
+    names: `spec`, `tc`, `seg`, `num_fragments`, the (B, tb_sub, 128)
+    panels `local_cells`, `xs`, and `batch_tile`, `flags`, `batch_xseg`,
+    `tile_mask`."""
+    spec = GridSpec(n=int(plan.spec.n), origin=tuple(float(v) for v in plan.spec.origin),
+                    voxel_size=float(plan.spec.voxel_size))
+    arrays = (np.asarray(getattr(plan, k)) for k in (
+        "local_cells", "xs", "batch_tile", "flags", "batch_xseg", "tile_mask"))
+    return PallasVoxPlan.from_layout(spec, device, *arrays, tc=int(plan.tc),
+                                     seg=int(plan.seg),
+                                     num_fragments=int(plan.num_fragments))
+
+
+def wide_seed_from_voxtpu(hi, lo, *, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wide JFA's (hi, lo) state as int32 tensors on `device` (copies
+    of voxtpu's int32 arrays, the same values)."""
+    return _i32(hi, device), _i32(lo, device)
 
 
 def wq_plan_from_voxtpu(plan, *, device) -> WorkQueueVoxPlan:

@@ -16,7 +16,9 @@ Backends:
   `emit_fragments` and `resolve_fragments`, torch ops on any device.
 - ``"word_event"`` (voxtpu's ``"pallas"``, its default route): the
   word-event voxelizer (`ops/vox_word_event.py`), kernel B12 on CUDA
-  tensors.
+  tensors; with a `PallasVoxPlan`, voxtpu's suffix-kernel route
+  (`ops/vox_cuda.py::suffix_words`, kernel B2), as an explicit plan
+  forces it in voxtpu.
 - ``"cuda"``: the banded slot pipeline (`ops/vox_slots_banded.py`),
   the pipeline voxtpu's benchmark headlines, kernels B1 and B2. The
   port's CLI ``-t 2`` takes it; all four backends give the same grid
@@ -258,8 +260,8 @@ def voxelize(mesh: Mesh, spec: GridSpec, backend: str = "cuda", *,
 
     `plan`, when given, must match `spec` and `device`: a
     `FragmentPlan` for ``"plain"`` or ``"word_event"``, a
-    `WordEventVoxPlan` for ``"word_event"``, a `BandedSlotVoxPipeline`
-    for ``"cuda"``."""
+    `WordEventVoxPlan` or a `PallasVoxPlan` (the suffix route) for
+    ``"word_event"``, a `BandedSlotVoxPipeline` for ``"cuda"``."""
     spec.num_words  # packed output: raises early unless N % 32 == 0
     device = torch.empty(0, device=device).device  # "cuda" -> "cuda:0"
     if backend not in BACKENDS:
@@ -277,11 +279,16 @@ def voxelize(mesh: Mesh, spec: GridSpec, backend: str = "cuda", *,
         return VoxelGrid(words, spec.origin_tensor(device),
                          spec.voxel_size_tensor(device))
     if backend == "word_event":
+        from voxtpu_torch.ops.vox_cuda import PallasVoxPlan, suffix_words
         from voxtpu_torch.ops.vox_word_event import (WordEventVoxPlan,
                                                      voxelize_word_event)
 
         if plan is not None:
-            _check_plan(plan, (FragmentPlan, WordEventVoxPlan), backend, spec, device)
+            _check_plan(plan, (FragmentPlan, WordEventVoxPlan, PallasVoxPlan), backend,
+                        spec, device)
+        if isinstance(plan, PallasVoxPlan):
+            return VoxelGrid(suffix_words(plan), spec.origin_tensor(device),
+                             spec.voxel_size_tensor(device))
         return voxelize_word_event(mesh, spec, device, plan=plan)
     from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
 

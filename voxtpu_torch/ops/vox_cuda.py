@@ -1,12 +1,15 @@
-"""Whole-axis suffix-fill kernel (B2) and the shared slot/tile layout.
+"""Whole-axis suffix-fill kernel (B2), the shared slot/tile layout and
+voxtpu's suffix-kernel route.
 
-Port of the parts of `voxtpu/ops/vox_pallas.py` that the banded and
-word-event pipelines use: the tile geometry constants, the batch
-layout (`tile_batches`, `tile_flags`, `_gather_batches`), the
-supertile size `_group_factor`, and kernel B2, which replaces the Pallas `_pallas_kernel` (`_run_pallas` with
-`seg=None`). The banded pipeline routes its x-degenerate candidates
-(whose x window does not fit a band) through B2 into a compact
-per-touched-tile buffer.
+Port of `voxtpu/ops/vox_pallas.py`: the tile geometry constants, the
+batch layout (`tile_batches`, `tile_flags`, `_gather_batches`), the
+supertile size `_group_factor`, kernel B2, which replaces the Pallas
+`_pallas_kernel` (`_run_pallas` with `seg=None`), and `PallasVoxPlan`,
+the sorted-fragment layout with which voxtpu forces its suffix kernel
+(`suffix_words`, on B2). The banded pipeline routes its x-degenerate
+candidates (whose x window does not fit a band) through B2 into the
+grid's touched tiles; `vox_slots.SlotVoxPipeline` fills every tile with
+it.
 
 B2 computes, per batch of slots of one tile, the XOR of the suffix
 fill masks of the live slots over the whole x axis, packed into
@@ -35,7 +38,9 @@ import numpy as np
 import torch
 
 from voxtpu_torch import _build
-from voxtpu_torch.grids.voxel_grid import WORD_BITS, pack_bits
+from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, pack_bits
+from voxtpu_torch.mesh.mesh import Mesh
+from voxtpu_torch.ops.vox import FragmentPlan, fragments_from_plan
 
 TILE_CELLS = 128          # cells (YZ columns) per output tile
 TB_SUB, TB_LANE = 4, 128  # slot batch = TB_SUB x 128 panel
@@ -324,3 +329,106 @@ def wide_fill_into(words: torch.Tensor, local: torch.Tensor, xs: torch.Tensor,
 
 
 wide_fill.launches = 0
+
+
+class PallasVoxPlan:
+    """Sorted-fragment batch layout of one (mesh, grid) pair on `device`
+    (`vox_pallas.py:245-330`), the plan that forces voxtpu's suffix
+    kernel. Fragments (of `fragments`, or `frag_plan`'s, or a new
+    `FragmentPlan`'s) are keyed by (YZ tile, X segment of width `seg`,
+    which must divide N; N by default) with a stable sort, as voxtpu's
+    `lax.sort`, and cut into batches of tb = tb_sub * 128 per group; the
+    FIRST / LAST flags are set at tile granularity. Only the group
+    bounds come back to the host. The arrays equal voxtpu's:
+    `local_cells`, `xs` (B, tb_sub, 128) int32 (local -1 in pad lanes),
+    `batch_tile`, `flags`, `batch_xseg` (B,) int32, `tile_mask`
+    (num_tiles,) bool; `layout` is B2's `FillLayout`.
+
+    The x entries stay absolute, so B2's whole-axis fill of each batch,
+    XORed over a tile's batches, gives voxtpu's segmented words (each
+    segment's suffix fill plus its carry): `suffix_words` needs no
+    segment id and no kernel of its own."""
+
+    def __init__(self, mesh: Mesh, spec: GridSpec, device,
+                 frag_plan: FragmentPlan | None = None, fragments=None,
+                 tc: int = TILE_CELLS, tb_sub: int = TB_SUB, seg: int | None = None):
+        n = spec.n
+        if n % WORD_BITS != 0:
+            raise ValueError("the suffix route requires N % 32 == 0")
+        if tc <= 0 or (n * n) % tc != 0:
+            raise ValueError(f"tc={tc} must be positive and divide N^2={n * n} "
+                             "(tiles are TC consecutive YZ cells)")
+        seg = n if seg is None else min(seg, n)
+        if seg < 1 or n % seg != 0:
+            raise ValueError(f"seg={seg} must divide N={n}")
+        n_seg = n // seg
+        tb = tb_sub * TB_LANE
+        self._geometry(spec, device, tc, tb_sub, seg)
+        num_tiles = self.num_tiles
+        if fragments is None:
+            if frag_plan is None:
+                frag_plan = FragmentPlan(mesh, spec, self.device)
+            fragments = fragments_from_plan(frag_plan)
+        cells, xs = (a.to(self.device) for a in fragments)
+        # Composite key (tile, xseg); the n*n cell sentinel maps to key
+        # num_tiles * n_seg (xs = 0 there), past every probe.
+        key = (cells // tc) * n_seg + torch.where(cells < n * n, xs // seg,
+                                                  torch.zeros_like(xs))
+        key, order = torch.sort(key, stable=True)
+        local, xs = (cells % tc)[order], xs[order]
+        probes = torch.arange(num_tiles * n_seg + 1, dtype=key.dtype, device=self.device)
+        bounds = torch.searchsorted(key, probes).cpu().numpy()
+        valid = int(bounds[-1])
+
+        batch_group, starts_h, ends_h = tile_batches(bounds, tb)
+        batch_tiles = batch_group // n_seg
+        flags, _ = tile_flags(bounds, batch_tiles)  # FIRST / LAST by tile, not group
+        starts, ends = (torch.from_numpy(a).to(self.device)
+                        for a in (starts_h, np.minimum(ends_h, valid)))
+        panel = (-1, tb_sub, TB_LANE)
+        self._set_layout(
+            _gather_batches(local[:valid], starts, ends, tb=tb, fill=-1).view(panel),
+            _gather_batches(xs[:valid], starts, ends, tb=tb, fill=0).view(panel),
+            batch_tiles, flags, batch_group % n_seg,
+            (np.diff(bounds) > 0).reshape(num_tiles, n_seg).any(axis=1), valid)
+
+    def _geometry(self, spec, device, tc, tb_sub, seg) -> None:
+        self.spec, self.tc, self.tb_sub, self.seg = spec, tc, tb_sub, seg
+        self.device = torch.empty(0, device=device).device
+        self.num_tiles = spec.n * spec.n // tc
+
+    def _set_layout(self, local_cells, xs, batch_tile, flags, batch_xseg, tile_mask,
+                    num_fragments) -> None:
+        def dev(a, dtype):
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a))  # a copy: the source may be read-only
+            return a.to(device=self.device, dtype=dtype).contiguous()
+
+        self.local_cells, self.xs, self.batch_tile, self.flags, self.batch_xseg = (
+            dev(a, torch.int32) for a in (local_cells, xs, batch_tile, flags, batch_xseg))
+        self.tile_mask = dev(tile_mask, torch.bool)
+        self.num_fragments = int(num_fragments)
+        self.num_batches = self.batch_tile.shape[0]
+        self.layout = fill_layout(np.asarray(batch_tile), self.num_tiles, self.device,
+                                  nw=self.spec.n // WORD_BITS, tc=self.tc)
+
+    @classmethod
+    def from_layout(cls, spec: GridSpec, device, local_cells, xs, batch_tile, flags,
+                    batch_xseg, tile_mask, *, tc: int, seg: int,
+                    num_fragments: int) -> "PallasVoxPlan":
+        """A plan on a given layout (see `interop.pallas_plan_from_voxtpu`);
+        `batch_tile` must be non-decreasing (`fill_layout` checks it)."""
+        plan = cls.__new__(cls)
+        plan._geometry(spec, device, tc, np.shape(local_cells)[1], seg)
+        plan._set_layout(local_cells, xs, batch_tile, flags, batch_xseg, tile_mask,
+                         num_fragments)
+        return plan
+
+
+def suffix_words(plan: PallasVoxPlan) -> torch.Tensor:
+    """voxtpu's suffix-kernel route on `plan` (`vox_pallas.py:333-368`):
+    B2 over every batch -> (n, n, n/32) int32 words."""
+    n = plan.spec.n
+    words = wide_fill(plan.local_cells, plan.xs, plan.batch_tile, n=n, tc=plan.tc,
+                      num_tiles=plan.num_tiles, layout=plan.layout)
+    return words.view(n, n, n // WORD_BITS)

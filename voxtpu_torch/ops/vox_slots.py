@@ -1,11 +1,14 @@
-"""Static slot layout: candidates, batch gathers, slot rows, the emit.
+"""Static slot layout: candidates, batch gathers, slot rows, the emit,
+and voxtpu's whole-axis slot pipeline.
 
-Port of the parts of `voxtpu/ops/vox_slots.py` that the banded
-pipeline uses. The candidate -> cell mapping of a fixed topology is
-static, so the host builds it once: every triangle's exact y/z
-bounding-box rectangle of candidate cells, cut into batches of slots.
-Per call, `_slot_emit` evaluates each slot's plane intersection and
-edge tests (the value-dependent part) on the device.
+Port of `voxtpu/ops/vox_slots.py`. The candidate -> cell mapping of a
+fixed topology is static, so the host builds it once: every triangle's
+exact y/z bounding-box rectangle of candidate cells, cut into batches
+of slots. Per call, `_slot_emit` evaluates each slot's plane
+intersection and edge tests (the value-dependent part) on the device.
+The banded pipeline (`ops/vox_slots_banded.py`) uses these pieces;
+`SlotVoxPipeline`, voxtpu's cross-check of it, fills each tile's
+batches over the whole x axis with kernel B2.
 
 `_slot_emit` is torch ops (voxtpu runs it as XLA, not Pallas). Its
 arithmetic matches `vox_slots.py:154-179` term for term, and eager
@@ -19,10 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voxtpu_torch.grids.voxel_grid import GridSpec
+from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.ops.vox import _edge_zy, _triangle_windows
-from voxtpu_torch.ops.vox_cuda import TB_LANE
+from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS, fill_layout,
+                                       tile_batches, tile_flags, wide_fill)
 
 
 def _exact_candidates(mesh: Mesh, spec: GridSpec):
@@ -132,3 +136,77 @@ def _slot_emit(rows, local: torch.Tensor, batch_tile: torch.Tensor,
     x = xf.to(torch.int32).clamp(0, n - 1)
     return (torch.where(valid, x, torch.zeros_like(x)),
             torch.where(valid, local, torch.full_like(local, -1)))
+
+
+class SlotVoxPipeline:
+    """Whole-pipeline voxelizer with a static slot layout
+    (`vox_slots.py:195-281`), built once on the host for one (mesh,
+    grid) pair on `device`: every candidate of `_exact_candidates` owns a
+    slot, slots are sorted by YZ tile (stable) and cut into batches of
+    tb = tb_sub * 128 per tile. Each call is `_slot_emit` and B2 over
+    the whole x axis of every tile (`wide_fill`, on the plan's
+    `FillLayout`). The arrays equal voxtpu's: `rows` (nine (B, tb_sub,
+    128) float32), `local` (int32, -1 = pad), `batch_tile`, `flags`,
+    `batch_xseg` (zeros) (B,) int32, `tile_mask` (num_tiles,) bool.
+
+    No overflow state: validity is decided per call, but vertex motion
+    beyond the built windows leaves the result silently stale; rebuild
+    on drift. Only the whole-axis fill: `seg` other than None or N is
+    refused, as in voxtpu (its slots are grouped by tile only, so a
+    segmented fill would drop every fragment entering at x >= seg)."""
+
+    def __init__(self, mesh: Mesh, spec: GridSpec, device, tc: int = TILE_CELLS,
+                 tb_sub: int = TB_SUB, seg: int | None = None):
+        n = spec.n
+        if n % WORD_BITS != 0:
+            raise ValueError("the slot pipeline requires N % 32 == 0")
+        if tc <= 0 or (n * n) % tc != 0:
+            raise ValueError(f"tc={tc} must divide N^2={n * n}")
+        if seg is not None and seg != n:
+            raise ValueError(f"SlotVoxPipeline supports only whole-axis fill "
+                             f"(seg=None or seg == n, got seg={seg})")
+        tb = tb_sub * TB_LANE
+        self.spec, self.tc, self.tb_sub, self.seg = spec, tc, tb_sub, n
+        num_tiles = (n * n) // tc
+        self.num_tiles = num_tiles
+
+        tri, cell, v0, v1, v2 = _exact_candidates(mesh, spec)
+        self.num_candidates = cell.shape[0]
+        order = np.argsort(cell // tc, kind="stable")
+        cell, tri = cell[order], tri[order]
+        local = (cell % tc).astype(np.int32)
+        bounds = np.searchsorted(cell // tc, np.arange(num_tiles + 1, dtype=np.int64))
+        batch_tiles, starts, ends = tile_batches(bounds, tb)
+        flags, tile_mask = tile_flags(bounds, batch_tiles)
+        self.num_batches = len(batch_tiles)
+        self.num_slots = self.num_batches * tb
+        self.rows, self.local = _slot_rows(
+            _batch_index(starts, ends, tri, tb, 0), _batch_index(starts, ends, local, tb, -1),
+            v0, v1, v2, tb_sub, device)
+        self.device = self.local.device
+
+        def dev32(a):
+            return torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.device)
+
+        self.batch_tile = dev32(batch_tiles)
+        self.flags = dev32(flags)
+        self.batch_xseg = torch.zeros(self.num_batches, dtype=torch.int32, device=self.device)
+        self.tile_mask = torch.from_numpy(tile_mask).to(self.device)
+        self.layout = fill_layout(batch_tiles, num_tiles, self.device, nw=n // WORD_BITS,
+                                  tc=tc)
+        # Made once: a tensor made from host values waits for the card.
+        self._origin = spec.origin_tensor(self.device)
+        self._voxel_size = spec.voxel_size_tensor(self.device)
+
+    def words(self) -> torch.Tensor:
+        """One call: the emit, then B2 -> (n, n, n/32) int32 words."""
+        n = self.spec.n
+        xs, local_k = _slot_emit(self.rows, self.local, self.batch_tile, self._origin,
+                                 self._voxel_size, n=n, tc=self.tc)
+        words = wide_fill(local_k, xs, self.batch_tile, n=n, tc=self.tc,
+                          num_tiles=self.num_tiles, layout=self.layout)
+        return words.view(n, n, n // WORD_BITS)
+
+    def __call__(self) -> VoxelGrid:
+        return VoxelGrid(words=self.words(), origin=self._origin.clone(),
+                         voxel_size=self._voxel_size.clone())

@@ -5,8 +5,11 @@ Port of `voxtpu/utils/profiling.py`: wall-clock scopes printing
 labels ``Parent::Child``, ``%f`` values. CUDA work is asynchronous, so
 a scope fenced on a CUDA tensor (:meth:`ProfilingScope.observe`) calls
 `torch.cuda.synchronize()` on that tensor's device before the clock
-stops. Scopes always print; voxtpu's process-wide on/off switch is not
-carried over (only the CLI opens scopes).
+stops. Each scope is also a named range of a `torch.profiler` trace
+(`utils/trace.py::annotate`), which costs a record_function's few
+microseconds where no trace runs. Scopes always print; voxtpu's
+process-wide on/off switch is not carried over (only the CLI opens
+scopes).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import time
 from contextlib import ContextDecorator
 
 import torch
+
+from voxtpu_torch.utils.trace import annotate
 
 
 class ProfilingScope(ContextDecorator):
@@ -39,6 +44,8 @@ class ProfilingScope(ContextDecorator):
 
     def __enter__(self):
         self._pending = []
+        self._range = annotate(self.label)
+        self._range.__enter__()
         self._start = time.perf_counter()
         return self
 
@@ -47,6 +54,7 @@ class ProfilingScope(ContextDecorator):
                    if isinstance(v, torch.Tensor) and v.is_cuda}
         for device in devices:
             torch.cuda.synchronize(device)
+        self._range.__exit__(*exc)
         self._pending = []
         self.elapsed_ms = (time.perf_counter() - self._start) * 1e3
         print(f"[{self.label}]: {self.elapsed_ms:f} ms", flush=True)
