@@ -140,6 +140,34 @@ and no result line:
    must equal the fused engine's within 1e-4 relative. The
    kernel table's launches are phase 4's for B1-B5 and this phase's for
    B7-B11 and B13 (phase 4b's for B4 and B12).
+6b. The sharded paths (`voxtpu_torch.parallel`), after the kernels were
+   built in phase 2: this script starts itself as the ranks of a world
+   (`--sharded-rank WORLD RANK BACKEND DIR`), each importing only
+   voxtpu_torch, with a timeout a world, inputs and results passing
+   through files in a temporary directory; any rank's failure fails the
+   phase. A world of 1 on NCCL (cuda:0), then a world of 2 on gloo
+   with both ranks on cuda:0 (NCCL refuses two ranks on one device; the
+   collectives stage CUDA tensors through the host and count the bytes).
+   Vox: `voxelize_sharded` on phase 4's two washers at 512^3 on (1, W)
+   and (W, 1), ring and gather: every assembled grid xor popcount 0
+   against the banded pipeline's. JFA: `jfa_sharded` on the union of the
+   (1, W) slabs: packed bitwise the CLI's SDF route (B3 + B5), wide
+   bitwise `jfa_wide`; wall and each step's time (a replay of the
+   flood, bitwise the call). Fit: the cuda (B13), fused (B7/B8) and seg
+   (B9-B11) sharded engines at 512^3 on phase 6's torus, target and
+   start on (1, W), and the plain engine at 128^3 on phase 5's icosphere
+   (one step), the cuda engine's gradient there on (W, 1) (the d axis).
+   World 1: loss within 1e-6 relative and gradient within 1e-3 x max|g|
+   of the single-device engine on the same plan. World 2: first loss
+   within 1e-5 relative of phase 6's for that engine, gradient within
+   1e-3 x max|g| of world 1's, SHARDED_STEPS steps after which the loss
+   is lower, coordinates bitwise equal on both ranks, each rank's kernels
+   held against their plain versions on its plan (phase 5's limits; B13
+   timed on rank 0's plan while rank 1 waits) and launched on each rank
+   (counted from zero around the engine's run). Prints walls, each
+   rank's peak memory, staged bytes and launch counts, with the card's
+   name and power limit: on one card the times measure staging through
+   the host, not scaling.
 7. `python -m voxtpu_torch.examples.fit_vertices --n 64 --steps 10
    --engine fused` on an OBJ written here must exit 0 with an improved
    hard IoU.
@@ -156,7 +184,9 @@ and no result line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    Launches are those of each kernel's own path: phase 4's CLI call
    (B1-B3, B5) and `jfa(pipe=True)` (B6); phase 4b's routes (B4, B12,
-   B14); phase 4c's probe (P1); phase 6 (the training kernels).
+   B14); phase 4c's probe (P1); phase 6 (the training kernels); phase
+   6b's world of 2 (both ranks) for the two rows of B13's sharded sites
+   and the `sharded_launches` of B7-B11 and B13.
 
 Imports nothing of jax or voxtpu.
 """
@@ -190,6 +220,7 @@ PROBE_N, PROBE_KS = 512, (4, 128)  # phase 4c's flood-step probe
 PROBE_ROW = "hoistv"    # the probe variant whose time the kernels line carries
 WIDE_N = 1280           # phase 4d: the CLI's SDF on the wide (hi, lo) flood
 TRACE_N = 128           # phase 4d: the CLI with --trace
+SHARDED_STEPS = 3       # phase 6b: each kernel engine's steps in the world of 2
 
 # The least time the card could take for a kernel's work (`bound`): the
 # larger of its bytes over the memory rate and its operations over their
@@ -900,7 +931,7 @@ def seg_fit(dev, errs, timings, bounds, plan, start, target, fused_loss0: float)
     """Phase 6's seg run: VoxelFit(engine="seg") from the fused run's
     plan and start for TRAIN_STEPS steps (step 4 refreshes); B9-B11
     held and timed on step 1's inputs and held again on the refreshed
-    plan. Returns (launch counts, walls)."""
+    plan. Returns (launch counts, walls, first loss)."""
     import torch
 
     from voxtpu_torch.models.fit import VoxelFit
@@ -960,7 +991,7 @@ def seg_fit(dev, errs, timings, bounds, plan, start, target, fused_loss0: float)
             tables = tables_of(state.coords, rp)
         hold_seg(rp, tables, lambda occ: loss_cotangent(occ, target), errs,
                  f"{n}^3 refreshed")
-    return launches, walls
+    return launches, walls, losses[0]
 
 
 def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN_FACES):
@@ -969,11 +1000,13 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
     VoxelFit(engine="seg") and VoxelFit(engine="cuda") (CUDA_STEPS
     steps) from the same start on the same plan. Returns the launch
     counts of the runs (B1 and B2 for the target, B7 and B8 for the
-    fused fit, B9-B11 for the seg fit, B13 for the cuda one)."""
+    fused fit, B9-B11 for the seg fit, B13 for the cuda one) and the
+    fit's case for phase 6b (mesh, start, spec, packed target, each
+    engine's first loss)."""
     import numpy as np
     import torch
 
-    from voxtpu_torch.grids.voxel_grid import GridSpec
+    from voxtpu_torch.grids.voxel_grid import GridSpec, pack_bits
     from voxtpu_torch.mesh.mesh import Mesh
     from voxtpu_torch.models.fit import VoxelFit
     from voxtpu_torch.ops import soft_vox_cuda, soft_vox_fused, vox_cuda, vox_slots_banded
@@ -1065,8 +1098,8 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
         torch.cuda.empty_cache()
 
     # The seg engine from the same start on the same plan.
-    seg_launches, seg_walls = seg_fit(dev, errs, timings, bounds, plan, start, target,
-                                      losses[0])
+    seg_launches, seg_walls, seg_loss0 = seg_fit(dev, errs, timings, bounds, plan, start,
+                                                 target, losses[0])
     launches.update(seg_launches)
     torch.cuda.empty_cache()
     print(f"warm step (median of steps 2, 3, 5) at {n}^3: seg {warm_step(seg_walls):.4f} "
@@ -1112,7 +1145,514 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
     launches.update({"B13f": B13F.launches, "B13b": B13B.launches})
     for key in ("B13f", "B13b"):
         require(launches[key] == CUDA_STEPS, f"{key}: {launches[key]} launches")
-    return launches
+    case = {"coords": mesh.coords, "faces": mesh.faces, "start": start,
+            "spec": (spec.n, spec.origin, spec.voxel_size),
+            "target": pack_bits(target.bool()).cpu().numpy(),
+            "first": {"fused": losses[0], "seg": seg_loss0, "cuda": closs[0]}}
+    return launches, case
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the sharded paths (voxtpu_torch.parallel), worlds of ranks
+# ---------------------------------------------------------------------------
+
+
+def world_log(rank: int, world: int, msg: str) -> None:
+    print(f"[world {world} rank {rank}] {msg}", flush=True)
+
+
+def barrier(world: int) -> None:
+    """Every rank's queued work done, then every rank here."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    if world > 1:
+        dist.barrier()
+
+
+def sharded_vox_part(world, rank, dev, inputs, out, directory) -> None:
+    """voxelize_sharded on phase 4's two washers at MAIN_N, on (1, W) and
+    (W, 1), both exchanges: each rank writes its slab; returns this
+    rank's (1, W) ring slabs for the JFA."""
+    import numpy as np
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec
+    from voxtpu_torch.mesh.mesh import Mesh
+    from voxtpu_torch.ops.vox import FragmentPlan
+    from voxtpu_torch.parallel import collectives as C
+    from voxtpu_torch.parallel.distributed import global_mesh
+    from voxtpu_torch.parallel.sharded_vox import voxelize_sharded
+
+    spec = GridSpec(*inputs["spec"])
+    meshes = [Mesh(name=f"washer_{i}", coords=c, faces=f, faces_normals=f)
+              for i, (c, f) in enumerate(inputs["washers"])]
+    t0 = time.perf_counter()
+    plans = [FragmentPlan(m, spec, dev) for m in meshes]
+    world_log(rank, world, f"vox: two FragmentPlans in {time.perf_counter() - t0:.1f} s")
+    kept = []
+    for shape in ((1, world), (world, 1)) if world > 1 else ((1, 1),):
+        dmesh = global_mesh(("d", "z"), shape)
+        for i, m in enumerate(meshes):
+            for exchange in ("ring", "gather"):
+                C.staged_bytes.count = 0
+                barrier(world)
+                t0 = time.perf_counter()
+                grid = voxelize_sharded(m, spec, dmesh, plan=plans[i], exchange=exchange)
+                barrier(world)
+                wall = time.perf_counter() - t0
+                np.save(os.path.join(directory, f"vox_{i}_{shape[0]}x{shape[1]}_{exchange}"
+                                                 f"_r{rank}.npy"), grid.words.cpu().numpy())
+                world_log(rank, world, f"voxelize_sharded washer {i} on {shape} {exchange}: "
+                          f"{wall:.3f} s, slab {tuple(grid.words.shape)}, staged "
+                          f"{C.staged_bytes() / 1e6:.1f} MB")
+                if shape == (1, world) and exchange == "ring":
+                    kept.append(grid.words)
+    return kept
+
+
+def sharded_jfa_part(world, rank, dev, inputs, out, directory, slabs) -> None:
+    """jfa_sharded on the union of the two washers' (1, W) slabs, packed
+    and wide: each rank writes its field's slab; the flood is replayed
+    step by step (bitwise the call) for each step's time."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec, unpack_bits
+    from voxtpu_torch.parallel import collectives as C
+    from voxtpu_torch.parallel import sharded_jfa as SJ
+    from voxtpu_torch.parallel.distributed import global_mesh
+
+    spec = GridSpec(*inputs["spec"])
+    n, slab = spec.n, spec.n // world
+    dmesh = global_mesh(("d", "z"), (1, world))
+    occ = unpack_bits(slabs[0] | slabs[1])
+    group, z = dmesh.get_group("z"), dmesh.get_local_rank("z")
+    for encoding in ("packed", "wide"):
+        C.staged_bytes.count = 0
+        torch.cuda.reset_peak_memory_stats()
+        barrier(world)
+        t0 = time.perf_counter()
+        sdf = SJ.jfa_sharded(occ, spec, dmesh, encoding=encoding)
+        barrier(world)
+        wall = time.perf_counter() - t0
+        staged = C.staged_bytes()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        np.save(os.path.join(directory, f"jfa_{encoding}_r{rank}.npy"), sdf.cpu().numpy())
+        fills = SJ._FILLS[encoding]
+        sel_fn, out_fn = SJ._metrics(spec, slab, z, encoding, dev)
+        steps = []
+        barrier(world)
+        t0 = time.perf_counter()
+        state = SJ._init_local(occ, n, slab, group, z, world, encoding)
+        barrier(world)
+        init_s = time.perf_counter() - t0
+        for k, step in SJ.flood_steps(spec, world):
+            t0 = time.perf_counter()
+            state = step(state, fills, sel_fn, k, slab, group, z, world)
+            barrier(world)
+            steps.append((k, time.perf_counter() - t0))
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        replay = torch.where(occ, one, -one) * out_fn(state)
+        require(bitwise_equal(replay, sdf), f"jfa_sharded {encoding}: the replayed flood "
+                "differs from the call")
+        out["jfa", encoding] = {"wall": wall, "init": init_s, "steps": steps,
+                                "staged": staged, "peak": peak}
+        world_log(rank, world, f"jfa_sharded {encoding} at {n}^3 on (1, {world}): {wall:.3f} s "
+                  f"wall, staged {staged / 1e6:.1f} MB, peak {peak:.2f} GiB; init "
+                  f"{init_s:.3f} s; steps " + ", ".join(f"k={k} {t:.3f}" for k, t in steps))
+        del sdf, replay, state
+
+
+def sharded_engine(name, soft_plan, start, dmesh, lr, *, n_small=False):
+    """(init_fn, step_fn, loss_fn) of a sharded engine at phase 6's
+    temperatures."""
+    from voxtpu_torch.parallel.sharded_fit import make_sharded_fit
+    from voxtpu_torch.parallel.sharded_soft_fused import make_sharded_fit_fused
+    from voxtpu_torch.parallel.sharded_soft_pallas import make_sharded_fit_pallas
+    from voxtpu_torch.parallel.sharded_soft_seg import make_sharded_fit_seg
+
+    kw = dict(learning_rate=lr, tau_edge_frac=TAU[0], tau_x_frac=TAU[1])
+    if name == "seg":
+        return make_sharded_fit_seg(soft_plan, start, dmesh, **kw)[:3]
+    make = {"plain": make_sharded_fit, "cuda": make_sharded_fit_pallas,
+            "fused": make_sharded_fit_fused}[name]
+    return make(soft_plan, dmesh, **kw)
+
+
+def single_device(name, plan, coords, target):
+    """(loss, coordinate gradient) through the single-device engine on
+    the same engine plan (a world of 1's plan is the whole plan)."""
+    from voxtpu_torch.models.fit import soft_iou_loss
+    from voxtpu_torch.ops.soft_vox import soft_voxelize
+    from voxtpu_torch.ops.soft_vox_cuda import soft_voxelize_cuda
+    from voxtpu_torch.ops.soft_vox_fused import soft_voxelize_fused
+    from voxtpu_torch.ops.soft_vox_seg import soft_voxelize_seg
+
+    fwd = {"plain": soft_voxelize, "cuda": soft_voxelize_cuda, "fused": soft_voxelize_fused,
+           "seg": soft_voxelize_seg}[name]
+    x = coords.detach().clone().requires_grad_(True)
+    loss = soft_iou_loss(fwd(x, plan, tau_edge_frac=TAU[0], tau_x_frac=TAU[1]), target)
+    loss.backward()
+    return float(loss), x.grad
+
+
+SHARDED_COUNTED = {"cuda": ("B13f", "B13b"), "fused": ("B7", "B8"),
+                   "seg": ("B9", "B10", "B11"), "plain": ()}
+
+
+def kernel_wrappers():
+    from voxtpu_torch.ops import soft_vox_cuda, soft_vox_fused, soft_vox_seg
+
+    return {"B13f": soft_vox_cuda.fragment_fwd, "B13b": soft_vox_cuda.fragment_bwd,
+            "B7": soft_vox_fused.fused_fwd, "B8": soft_vox_fused.fused_bwd,
+            "B9": soft_vox_seg.seg_fwd, "B10": soft_vox_seg.seg_combine,
+            "B11": soft_vox_seg.seg_bwd}
+
+
+def hold_rank_plan(name, plan, coords, g, errs, what):
+    """The engine's kernels against their plain versions on this rank's
+    plan (phase 5's limits); the calls and bounds of B13's."""
+    import torch
+
+    from voxtpu_torch.ops.soft_vox_fused import tables_of
+
+    if name == "cuda":
+        return hold_fragment(plan, coords, g, errs, what)
+    with torch.no_grad():
+        tables = tables_of(coords, plan)
+    if name == "fused":
+        return hold_fused(plan, tables, g, errs, what)
+    return hold_seg(plan, tables, g, errs, what)
+
+
+def sharded_fit_run(world, rank, dev, name, soft_plan, start, target, shape, lr, steps,
+                    out, key, g=None):
+    """One sharded engine on `shape`: its plan, the kernels held on the
+    rank's plan (`g` a cotangent; not counted), then with the counts at
+    0: the loss and gradient at `start`, `steps` Adam steps and the final
+    loss; the counts read after. World 1 also takes the single-device
+    engine on the same plan. Returns the gradient at `start`."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.parallel import collectives as C
+    from voxtpu_torch.parallel.distributed import global_mesh
+    from voxtpu_torch.parallel.mesh_utils import local_slab
+    from voxtpu_torch.parallel.sharded_fit import value_and_grad
+
+    wrappers = kernel_wrappers()
+    dmesh = global_mesh(("d", "z"), shape)
+    target_slab = local_slab(target, dmesh).contiguous()
+    barrier(world)
+    t0 = time.perf_counter()
+    init_fn, step_fn, loss_fn = sharded_engine(name, soft_plan, start, dmesh, lr)
+    barrier(world)
+    res = {"plan_s": time.perf_counter() - t0}
+    plan = step_fn.plan
+    coords, opt_state = init_fn(start)
+    counted = [wrappers[k] for k in SHARDED_COUNTED[name]]
+    if g is not None:
+        with uncounted(*wrappers.values()):
+            calls, bounds = hold_rank_plan(name, plan, coords, g, res.setdefault("errs", {}),
+                                           f"{key} rank {rank}")
+            if name == "cuda" and world > 1:
+                # rank 0 times B13 on its plan while the others wait
+                barrier(world)
+                if rank == 0:
+                    res["timings"] = {"B13f": (cuda_ms(calls[0], reps=3),
+                                               cuda_ms(calls[1], reps=3)),
+                                      "B13b": (cuda_ms(calls[2], reps=3),
+                                               cuda_ms(calls[3], reps=3))}
+                    res["bounds"] = bounds
+                barrier(world)
+            del calls
+    if world == 1:
+        with uncounted(*wrappers.values()):
+            loss1, grad1 = single_device(name, plan, coords, target)
+            res["single"] = (loss1, grad1.cpu().numpy())
+    for fn in counted:
+        fn.launches = 0
+    C.staged_bytes.count = 0
+    torch.cuda.reset_peak_memory_stats()
+    barrier(world)
+    t0 = time.perf_counter()
+    loss, grad = value_and_grad(loss_fn, coords, target_slab, dmesh)
+    barrier(world)
+    res.update(loss=float(loss), grad_s=time.perf_counter() - t0, walls=[], losses=[])
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        coords, opt_state, step_loss = step_fn(coords, opt_state, target_slab)
+        barrier(world)
+        res["walls"].append(time.perf_counter() - t0)
+        res["losses"].append(float(step_loss))
+    with torch.no_grad():
+        res["final"] = float(loss_fn(coords, target_slab))
+    barrier(world)
+    res.update(peak=torch.cuda.max_memory_allocated() / 2**30, staged=C.staged_bytes(),
+               launches={k: fn.launches for k, fn in zip(SHARDED_COUNTED[name], counted)},
+               coords=coords.cpu().numpy())
+    world_log(rank, world, f"{key}: plan {res['plan_s']:.1f} s; loss {res['loss']:.6f}, "
+              f"gradient {res['grad_s']:.3f} s; steps " + ", ".join(
+                  f"{lo:.6f} in {w:.3f} s" for lo, w in zip(res["losses"], res["walls"]))
+              + f"; final {res['final']:.6f}; peak {res['peak']:.2f} GiB; staged "
+              f"{res['staged'] / 1e9:.3f} GB; launches {res['launches']}")
+    out[key] = res
+    return grad.cpu().numpy()
+
+
+def sharded_fit_part(world, rank, dev, inputs, out, directory) -> None:
+    """The three kernel engines at MAIN_N on phase 6's torus, target and
+    start on (1, W) (one step in a world of 1, SHARDED_STEPS in a larger
+    one); the plain engine one step at KERNEL_N on phase 5's icosphere
+    on (1, W); the cuda engine's gradient at KERNEL_N on (W, 1). Each
+    gradient is written for the parent."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec, unpack_bits
+    from voxtpu_torch.mesh.mesh import Mesh
+    from voxtpu_torch.ops.soft_vox import make_soft_plan
+    from voxtpu_torch.ops.vox import voxelize
+
+    fc = inputs["fit"]
+    spec = GridSpec(*fc["spec"])
+    start = torch.from_numpy(fc["start"]).to(dev)
+    t0 = time.perf_counter()
+    soft_plan = make_soft_plan(Mesh(name="start", coords=fc["start"], faces=fc["faces"],
+                                    faces_normals=fc["faces"]), spec, pad_window=2)
+    world_log(rank, world, f"fit: make_soft_plan {time.perf_counter() - t0:.1f} s")
+    target = unpack_bits(torch.from_numpy(fc["target"]).to(dev)).float()
+    g = None  # a world of 1 holds no kernel: phase 6 held them on this plan
+    if world > 1:
+        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (spec.n,) * 3).astype(np.float32)).to(dev)
+    steps = 1 if world == 1 else SHARDED_STEPS
+    lr = TRAIN_LR_VOX * spec.voxel_size
+    for name in ("cuda", "fused", "seg"):
+        grad = sharded_fit_run(world, rank, dev, name, soft_plan, start, target, (1, world),
+                               lr, steps, out, name, g=g)
+        if rank == 0:
+            np.save(os.path.join(directory, f"grad_{name}.npy"), grad)
+        torch.cuda.empty_cache()
+    del target, g
+    mesh, sp = soft_case(KERNEL_N)
+    small = torch.from_numpy(mesh.coords).to(dev)
+    target = voxelize(mesh, sp.spec, "cuda", device=dev).to_dense().float()
+    lr = TRAIN_LR_VOX * sp.spec.voxel_size
+    for name, shape in (("plain", (1, world)), ("cuda", (world, 1))):
+        key = f"{name}{KERNEL_N}"
+        grad = sharded_fit_run(world, rank, dev, name, sp, small, target, shape, lr,
+                               1 if name == "plain" else 0, out, key)
+        if rank == 0:
+            np.save(os.path.join(directory, f"grad_{key}.npy"), grad)
+
+
+def sharded_rank(world: int, rank: int, backend: str, directory: str) -> int:
+    """A rank of phase 6b's world: vox, JFA and the fits; writes what
+    the parent checks to `directory` (results in rank{rank}.pkl)."""
+    import pickle
+
+    import torch
+
+    from voxtpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_distributed(f"file://{directory}/rendezvous", world, rank, backend=backend)
+    try:
+        with open(os.path.join(directory, "..", "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        out = {}
+        slabs = sharded_vox_part(world, rank, dev, inputs, out, directory)
+        sharded_jfa_part(world, rank, dev, inputs, out, directory, slabs)
+        del slabs
+        torch.cuda.empty_cache()
+        sharded_fit_part(world, rank, dev, inputs, out, directory)
+        with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def run_world(world: int, backend: str, directory: str, timeout: float) -> list:
+    """Start `world` ranks of this script (`--sharded-rank`), wait for
+    them within `timeout` seconds, print their logs; any rank's failure
+    or the timeout fails the phase. Returns each rank's results."""
+    import pickle
+
+    os.makedirs(directory)
+    logs = [open(os.path.join(directory, f"log{r}.txt"), "w") for r in range(world)]
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "4"}
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                               str(world), str(r), backend, directory], cwd=ROOT, env=env,
+                              stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r in range(world):
+        with open(os.path.join(directory, f"log{r}.txt")) as f:
+            print(f.read().rstrip())
+    codes = [p.returncode for p in procs]
+    require(all(c == 0 for c in codes), f"world of {world} ({backend}): exit codes {codes} "
+            f"(timeout {timeout} s)")
+    print(f"world of {world} ({backend}): {time.perf_counter() - t0:.1f} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(directory, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def sharded_paths(dev, errs, timings, bounds, card, washers, fit_case):
+    """Phase 6b: voxtpu_torch.parallel in a world of 1 on NCCL and a
+    world of 2 on gloo, both ranks on this card (NCCL refuses two ranks
+    on one device), each rank a process of this script. The kernels
+    were built in phase 2. Checks: every assembled vox grid xor 0
+    against the banded pipeline's; the JFA slabs bitwise the CLI's SDF
+    (packed, B3 + B5) and `jfa_wide`; world 1's fits equal the
+    single-device engines (loss 1e-6 relative, gradient 1e-3 x max|g|);
+    world 2's first loss phase 6's within 1e-5 relative, its gradients
+    world 1's within 1e-3 x max|g|, the loss falling over its steps, the
+    coordinates bitwise equal on both ranks; the kernels launched on
+    each rank and held on its plan. Returns the sharded launch counts
+    (summed over world 2's ranks), each kernel's largest error on the
+    ranks' plans, and B13's times and bounds on rank 0's plan."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
+    from voxtpu_torch.ops import jfa_cuda, vox_cuda, vox_slots_banded
+    from voxtpu_torch.ops.jfa import jfa, jfa_wide
+    from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
+
+    t_phase = time.perf_counter()
+    spec = GridSpec.fit(np.concatenate([m.coords for m in washers]), MAIN_N)
+    with uncounted(vox_slots_banded.banded_fill, vox_cuda.wide_fill, jfa_cuda.flood_step,
+                   jfa_cuda.sdf_from_seed):
+        grids = [BandedSlotVoxPipeline(m, spec, dev)().words for m in washers]
+        occ = VoxelGrid(grids[0] | grids[1], spec.origin_tensor(dev),
+                        spec.voxel_size_tensor(dev)).to_dense()
+        want = {"vox": [g.cpu().numpy() for g in grids],
+                "packed": jfa(occ, spec, backend="cuda").cpu().numpy(),
+                "wide": jfa_wide(occ, spec).cpu().numpy()}
+    del grids, occ
+    torch.cuda.empty_cache()
+    print(f"references (banded grids, the CLI's SDF route, jfa_wide) in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    inputs = {"washers": [(m.coords, m.faces) for m in washers],
+              "spec": (spec.n, spec.origin, spec.voxel_size), "fit": fit_case}
+    with tempfile.TemporaryDirectory(prefix="voxtpu_torch_sharded_") as tmp:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(inputs, f)
+        results = {}
+        for world, backend, timeout in ((1, "nccl", 420), (2, "gloo", 600)):
+            wdir = os.path.join(tmp, f"world{world}")
+            results[world] = run_world(world, backend, wdir, timeout)
+            check_world(world, wdir, results[world], want, fit_case,
+                        os.path.join(tmp, "world1"))
+    w2 = results[2]
+    sharded_errs = {}  # each kernel's largest error on world 2's rank plans
+    for r in w2:
+        for key in ("cuda", "fused", "seg"):
+            for k, v in r[key]["errs"].items():
+                if isinstance(k, tuple):  # (kernel, "/tol"): its share of the limit
+                    errs[k] = max(errs.get(k, 0.0), v)
+                else:
+                    sharded_errs[k] = max(sharded_errs.get(k, 0.0), v)
+    launches = {k: sum(r[e]["launches"][k] for r in w2)
+                for e in ("cuda", "fused", "seg") for k in SHARDED_COUNTED[e]}
+    for k, count in launches.items():
+        require(count > 0, f"world 2 never launched {k}")
+    print(f"world 2 launches (both ranks, the 3 steps and their loss and gradient): "
+          f"{launches}")
+    print("unchecked on one card: NCCL with more than one rank, more than one card, more "
+          "than one host; world 2's times measure staging through the host, not scaling")
+    print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches, sharded_errs, w2[0]["cuda"]["timings"], w2[0]["cuda"]["bounds"]
+
+
+def check_world(world, wdir, res, want, fit_case, w1dir) -> None:
+    """Phase 6b's checks of one world's results (see `sharded_paths`)."""
+    import numpy as np
+
+    def assembled(fmt, shape):
+        dd, dz = shape
+        rows = [np.concatenate([np.load(os.path.join(wdir, fmt.format(r=d * dz + z)))
+                                for z in range(dz)]) for d in range(dd)]
+        for row in rows[1:]:
+            require(np.array_equal(row.view(np.int32), rows[0].view(np.int32)),
+                    f"world {world}: the d rows of {fmt} differ")
+        return rows[0]
+
+    shapes = ((1, world), (world, 1)) if world > 1 else ((1, 1),)
+    for shape in shapes:
+        for i in range(2):
+            for exchange in ("ring", "gather"):
+                got = assembled(f"vox_{i}_{shape[0]}x{shape[1]}_{exchange}_r{{r}}.npy", shape)
+                xor = int(np.unpackbits((got ^ want["vox"][i]).view(np.uint8)).sum())
+                require(xor == 0, f"world {world}: washer {i} on {shape} {exchange}: xor "
+                        f"popcount {xor}")
+    print(f"world {world}: every voxelize_sharded grid (2 washers x {len(shapes)} shapes x "
+          f"2 exchanges) xor popcount 0 against the banded pipeline")
+    for encoding in ("packed", "wide"):
+        got = assembled(f"jfa_{encoding}_r{{r}}.npy", (1, world))
+        require(np.array_equal(got.view(np.int32), want[encoding].view(np.int32)),
+                f"world {world}: jfa_sharded {encoding} differs from the single-device field")
+    print(f"world {world}: jfa_sharded packed bitwise the CLI's SDF route (B3 + B5), wide "
+          f"bitwise jfa_wide, at {MAIN_N}^3")
+    ranks = range(world)
+    for key in ("cuda", "fused", "seg", f"plain{KERNEL_N}", f"cuda{KERNEL_N}"):
+        r0 = res[0][key]
+        require(all(np.isfinite(r[key]["loss"]) for r in res), f"{key}: non-finite loss")
+        require(all(r[key]["loss"] == r0["loss"] for r in res), f"{key}: ranks' losses differ")
+        for r in ranks:
+            require(np.array_equal(res[r][key]["coords"], r0["coords"]),
+                    f"world {world} {key}: rank {r}'s coordinates differ from rank 0's")
+        grad = np.load(os.path.join(wdir, f"grad_{key}.npy"))
+        if world == 1:
+            loss1, grad1 = r0["single"]
+            require(abs(r0["loss"] - loss1) <= 1e-6 * abs(loss1),
+                    f"world 1 {key}: loss {r0['loss']} against single-device {loss1}")
+            err, top = float(np.abs(grad - grad1).max()), float(np.abs(grad1).max())
+            require(err <= GRAD_TOL * top, f"world 1 {key}: gradient {err:.3e} > "
+                    f"{GRAD_TOL} x {top:.3e}")
+            print(f"world 1 {key}: loss {r0['loss']:.7f} (single device {loss1:.7f}), "
+                  f"gradient max_abs_err {err:.3e} (max |g| {top:.3e})")
+            continue
+        ref = np.load(os.path.join(w1dir, f"grad_{key}.npy"))
+        err, top = float(np.abs(grad - ref).max()), float(np.abs(ref).max())
+        require(err <= GRAD_TOL * top, f"world 2 {key}: gradient against world 1's "
+                f"{err:.3e} > {GRAD_TOL} x {top:.3e}")
+        line = (f"world 2 {key}: gradient against world 1's max_abs_err {err:.3e} (max |g| "
+                f"{top:.3e}); loss {r0['loss']:.7f}")
+        if key in fit_case["first"]:
+            first = fit_case["first"][key]
+            require(abs(r0["loss"] - first) <= 1e-5 * first, f"world 2 {key}: first loss "
+                    f"{r0['loss']} against phase 6's {first}")
+            line += f", phase 6's {first:.7f}"
+            require(r0["final"] < r0["loss"], f"world 2 {key}: the loss did not fall")
+        if r0["losses"]:
+            line += (f"; after {len(r0['losses'])} steps {r0['final']:.7f}; step walls "
+                     + ", ".join(f"{w:.3f}" for w in r0["walls"]) + " s")
+        line += "; peak GiB " + ", ".join(f"{r[key]['peak']:.2f}" for r in res)
+        line += f"; staged {r0['staged'] / 1e9:.3f} GB a rank"
+        print(line)
 
 
 def fit_example(dev) -> None:
@@ -2336,9 +2876,20 @@ def run() -> int:
 
     # ---- 6. training path --------------------------------------------------------
     phase(f"6. training path: VoxelFit at {MAIN_N}^3 on {MAIN_FACES:,} faces")
-    train = training_path(dev, errs, timings, bounds)
+    train, fit_case = training_path(dev, errs, timings, bounds)
     launches.update({k: train[k]
                      for k in ("B7", "B8", "B9", "B10", "B11", "B13f", "B13b")})
+
+    # ---- 6b. the sharded paths -----------------------------------------------------
+    phase("6b. sharded paths: a world of 1 (NCCL) and of 2 (gloo, both ranks on this card)")
+    sharded, sharded_errs, b13_ms, b13_bounds = sharded_paths(
+        dev, errs, timings, bounds, card,
+        [mesh_of(c, f, "washer_a"), mesh_of(shifted, f, "washer_b")], fit_case)
+    for key in ("B13f", "B13b"):
+        timings[key, "sharded"] = b13_ms[key]
+        bounds[key, "sharded"] = b13_bounds[key]
+        launches[key, "sharded"] = sharded[key]
+        errs[key, "sharded"] = sharded_errs[key]
 
     # ---- 7. the fitting example --------------------------------------------------
     phase("7. examples.fit_vertices on the card")
@@ -2372,6 +2923,10 @@ def run() -> int:
         ("B13b", "B13 fragment_bwd", soft, "voxtpu/ops/soft_vox_pallas.py:88"),
         ("B14", "B14 wq_fill", "voxtpu_torch/csrc/vox_wq.cu",
          "voxtpu/ops/vox_pallas_wq.py:35"),
+        (("B13f", "sharded"), "B13 fragment_fwd (sharded, a rank's plan)", soft,
+         "voxtpu/parallel/sharded_soft_pallas.py:91"),
+        (("B13b", "sharded"), "B13 fragment_bwd (sharded, a rank's plan)", soft,
+         "voxtpu/parallel/sharded_soft_pallas.py:127"),
         ("P1", f"P1 flood_probe ({PROBE_ROW})", "voxtpu_torch/csrc/jfa_probe.cu",
          "scripts/probe_jfa_micro.py:56"),
     ]
@@ -2389,6 +2944,9 @@ def run() -> int:
                         "device_ms": timings.get((key, "device")), "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
+        if key in sharded:  # B7-B11 and B13 also run per rank in phase 6b's world of 2
+            kernels[-1].update(sharded_launches=sharded[key],
+                               sharded_max_abs_err=sharded_errs[key])
     print("largest max_abs_err / limit of any check: " + ", ".join(
         f"{name} {errs[key, '/tol']:.3f}" for key, name, _, _ in table
         if (key, "/tol") in errs))
@@ -2400,4 +2958,6 @@ def run() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--sharded-rank":  # a rank of phase 6b
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(run())

@@ -21,7 +21,10 @@ against voxtpu's.
   FusedSoftPlan`, `voxtpu.ops.soft_vox_pallas.SoftPallasPlan`,
   `voxtpu.ops.soft_vox_seg.SegSoftPlan`);
 - a `VoxelFit` state: coordinates, optax's Adam (count, mu, nu) and the
-  step, the leaves of voxtpu's checkpoints.
+  step, the leaves of voxtpu's checkpoints;
+- the sharded paths' shard splits (`voxtpu.parallel.sharded_vox.
+  _split_buckets`, `voxtpu.parallel.sharded_fit._split_soft_buckets`)
+  and a sharded fit's (coords, opt_state).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from voxtpu_torch.ops.vox_slots_banded import BandedState
 from voxtpu_torch.ops.vox_cuda import PallasVoxPlan
 from voxtpu_torch.ops.vox_word_event import WordEventVoxPlan
 from voxtpu_torch.ops.vox_work_queue import WorkQueueVoxPlan
+from voxtpu_torch.parallel.sharded_fit import ShardPlan
 
 
 def words_to_torch(words: np.ndarray, *, device) -> torch.Tensor:
@@ -188,3 +192,28 @@ def fit_state_from_voxtpu(coords, count, mu, nu, step, *, device) -> FitState:
                                "exp_avg": _f32(mu, device),
                                "exp_avg_sq": _f32(nu, device)},
                     step=int(np.asarray(step)))
+
+
+def vox_shard_from_voxtpu(shards, shard: int) -> list:
+    """One shard of voxtpu's `_split_buckets` split ([shard][bucket] =
+    (window, v0, v1, v2, start_y, start_z)) as the port's NumPy bucket
+    rows, what `parallel.sharded_vox.local_fragments` emits."""
+    return [(int(window), *(np.array(a) for a in arrays))
+            for window, *arrays in shards[shard]]
+
+
+def soft_shard_from_voxtpu(soft_plan, split, shard: int) -> ShardPlan:
+    """One shard of voxtpu's `_split_soft_buckets` split ([(window, syp,
+    szp, fip)], each (n_shards, per)) as the port's `ShardPlan` over the
+    port's soft plan of the same mesh: what every sharded engine builds
+    its rank's plan on."""
+    return ShardPlan(soft_plan, [(int(window), np.array(syp[shard]), np.array(szp[shard]),
+                                  np.array(fip[shard])) for window, syp, szp, fip in split])
+
+
+def sharded_fit_state_from_voxtpu(coords, count, mu, nu, *, device):
+    """(coords, opt_state) of the port's sharded trainers from voxtpu's
+    `init_fn` / `step_fn` state: the replicated coordinates and optax
+    Adam's count, mu and nu (through `fit_state_from_voxtpu`)."""
+    state = fit_state_from_voxtpu(coords, count, mu, nu, 0, device=device)
+    return state.coords, state.opt_state

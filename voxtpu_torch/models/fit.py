@@ -61,16 +61,22 @@ def adam_state(coords: torch.Tensor) -> dict:
             "exp_avg_sq": torch.zeros_like(coords)}
 
 
-def adam_step(loss_fn: Callable, params: list, opt_states: list, lr: float):
+def adam_step(loss_fn: Callable, params: list, opt_states: list, lr: float,
+              reduce_grad: Callable | None = None):
     """One Adam step on `params` from `opt_states` (one state dict each,
     left untouched): (new params, new states, {loss, grad_norm}), with
-    the global L2 norm of the gradients."""
+    the global L2 norm of the gradients. `reduce_grad`, where given,
+    maps each gradient before the norm and the update (the sharded
+    trainers sum it over their ranks)."""
     params = [p.detach().clone().requires_grad_(True) for p in params]
     opt = torch.optim.Adam(params, lr=lr)
     for p, st in zip(params, opt_states):
         opt.state[p] = {k: v.clone() for k, v in st.items()}
     loss = loss_fn(params)
     loss.backward()
+    if reduce_grad is not None:
+        for p in params:
+            p.grad = reduce_grad(p.grad)
     grad_norm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
     opt.step()

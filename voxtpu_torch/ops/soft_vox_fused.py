@@ -168,7 +168,7 @@ def fused_bwd_plain(tables, cells_b, tblidx_b, batch_tile, g, *, n: int,
     tau_e, tau_x = prm[4], prm[5]
     cx = x_centers(n, prm[0], prm[3], tables.device)
     g_ext = torch.cat([g.reshape(n * n, n), g.new_zeros((1, n))])
-    dtab = torch.zeros((num_batches * tbl + 1, NGRAD), dtype=torch.float32,
+    dtab = torch.zeros((num_batches * tbl + 1, NGRAD), dtype=tables.dtype,
                        device=tables.device)
     for b0, b1 in _batch_chunks(num_batches, tb, n):
         valid, gcell, cy, cz, s0, s1, s2, cov, at, w, xh = _fused_slots(
