@@ -100,7 +100,10 @@ and no result line:
    never below the brute-force nearest boundary seed (same float
    formula) and above it by more than rtol 1e-5 at under 1% of them.
    Prints the phase's wall time, the JFA's time per step and the peak
-   device memory.
+   device memory. Between the two, the CLI's -t 3 (voxtpu's native
+   C++/OpenMP backend on the host, `voxtpu_torch/native`) at 128^3 on
+   the small washers: its grid xor popcount 0 against -t 0's, its SDF
+   within rtol 1e-6 of the oracle's, both on the card; its wall printed.
 5. Training kernels against their plain torch versions at n=128 on a
    jittered icosphere(4), soft plan with pad 2: B7 (fused forward)
    occupancy within 1e-4; B8 (fused backward) table cotangents for a
@@ -148,6 +151,11 @@ and no result line:
    phase. A world of 1 on NCCL (cuda:0), then a world of 2 on gloo
    with both ranks on cuda:0 (NCCL refuses two ranks on one device; the
    collectives stage CUDA tensors through the host and count the bytes).
+   Each rank takes its card from the world (`world_card`): its own,
+   `init_distributed`'s choice, for an NCCL world on a host with a card
+   a rank; cuda:0 for the gloo world. The same rank body and checks run
+   NCCL worlds of 2 and 4 on four cards (`tools/check_sharded_cards.py`;
+   `world_layout` gives each world's mesh shapes).
    Vox: `voxelize_sharded` on phase 4's two washers at 512^3 on (1, W)
    and (W, 1), ring and gather: every assembled grid xor popcount 0
    against the banded pipeline's. JFA: `jfa_sharded` on the union of the
@@ -167,7 +175,8 @@ and no result line:
    (counted from zero around the engine's run). Prints walls, each
    rank's peak memory, staged bytes and launch counts, with the card's
    name and power limit: on one card the times measure staging through
-   the host, not scaling.
+   the host, not scaling. Last, `python -m voxtpu_torch.parallel.dryrun
+   1` (voxtpu's dryrun_multichip, one NCCL rank) must print its line.
 7. `python -m voxtpu_torch.examples.fit_vertices --n 64 --steps 10
    --engine fused` on an OBJ written here must exit 0 with an improved
    hard IoU.
@@ -994,6 +1003,53 @@ def seg_fit(dev, errs, timings, bounds, plan, start, target, fused_loss0: float)
     return launches, walls, losses[0]
 
 
+def torus_case(dev, n: int = MAIN_N, faces: int = MAIN_FACES):
+    """Phase 6's fit: the rotated torus, its grid spec at n, the start
+    (shifted half a voxel along x plus 0.1 voxel of seeded jitter) and
+    the target, its hard grid through the serving path on `dev` (B1,
+    B2). Returns (mesh, spec, start, target, pipeline)."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import GridSpec
+    from voxtpu_torch.ops import vox_slots_banded
+    from voxtpu_torch.ops.vox import voxelize
+
+    t0 = time.perf_counter()
+    mesh = rotated_torus(faces)
+    spec = GridSpec.fit(mesh.coords, n)
+    vs = spec.voxel_size
+    rng = np.random.default_rng(0)
+    start = (mesh.coords + np.float32([0.5 * vs, 0.0, 0.0])
+             + rng.normal(0, 0.1 * vs, mesh.coords.shape)).astype(np.float32)
+    print(f"torus: {faces:,} faces, {len(mesh.coords):,} vertices, n={n}, voxel "
+          f"{vs:.6g}; made in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipe = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, dev)
+    target = voxelize(mesh, spec, "cuda", device=dev, plan=pipe).to_dense().float()
+    torch.cuda.synchronize()
+    occupied = int(target.sum())
+    require(0 < occupied < n ** 3, f"target occupancy {occupied}")
+    print(f"target: {occupied:,} voxels through the serving path in "
+          f"{time.perf_counter() - t0:.1f} s; {pipe.num_wide} wide candidates")
+    return mesh, spec, start, target, pipe
+
+
+def washer_meshes(faces: int = MAIN_FACES):
+    """Phase 4's two washers: radii 0.85 and 1.0, height 0.16, 64
+    segments, brought to `faces` faces; the second shifted by (0.9, 0,
+    0.05)."""
+    from voxtpu_torch.mesh import procedural
+    from voxtpu_torch.mesh.mesh import Mesh
+
+    c, f = procedural.washer(0.85, 1.0, 0.16, nu=64)
+    c, f = procedural.subdivide_to(c, f, faces)
+    require(len(f) == faces, "face count")
+    shifted = (c + [0.9, 0.0, 0.05]).astype(c.dtype)
+    return [Mesh(name="washer_a", coords=c, faces=f, faces_normals=f),
+            Mesh(name="washer_b", coords=shifted, faces=f, faces_normals=f)]
+
+
 def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN_FACES):
     """Phase 6: VoxelFit(engine="fused") at n on a rotated torus of
     `faces` faces for TRAIN_STEPS Adam steps (one plan refresh), then
@@ -1006,39 +1062,22 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
     import numpy as np
     import torch
 
-    from voxtpu_torch.grids.voxel_grid import GridSpec, pack_bits
+    from voxtpu_torch.grids.voxel_grid import pack_bits
     from voxtpu_torch.mesh.mesh import Mesh
     from voxtpu_torch.models.fit import VoxelFit
     from voxtpu_torch.ops import soft_vox_cuda, soft_vox_fused, vox_cuda, vox_slots_banded
     from voxtpu_torch.ops.soft_vox import make_soft_plan
     from voxtpu_torch.ops.soft_vox_fused import tables_of
-    from voxtpu_torch.ops.vox import voxelize
 
     B1, B2 = vox_slots_banded.banded_fill, vox_cuda.wide_fill
     B7, B8 = soft_vox_fused.fused_fwd, soft_vox_fused.fused_bwd
     B13F, B13B = soft_vox_cuda.fragment_fwd, soft_vox_cuda.fragment_bwd
     every = (B1, B2, B7, B8, B13F, B13B)
 
-    t0 = time.perf_counter()
-    mesh = rotated_torus(faces)
-    spec = GridSpec.fit(mesh.coords, n)
-    vs = spec.voxel_size
-    rng = np.random.default_rng(0)
-    start = (mesh.coords + np.float32([0.5 * vs, 0.0, 0.0])
-             + rng.normal(0, 0.1 * vs, mesh.coords.shape)).astype(np.float32)
-    print(f"torus: {faces:,} faces, {len(mesh.coords):,} vertices, n={n}, voxel "
-          f"{vs:.6g}; made in {time.perf_counter() - t0:.1f} s")
-
     for fn in every:
         fn.launches = 0
-    t0 = time.perf_counter()
-    pipe = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, dev)
-    target = voxelize(mesh, spec, "cuda", device=dev, plan=pipe).to_dense().float()
-    torch.cuda.synchronize()
-    occupied = int(target.sum())
-    require(0 < occupied < n ** 3, f"target occupancy {occupied}")
-    print(f"target: {occupied:,} voxels through the serving path in "
-          f"{time.perf_counter() - t0:.1f} s; {pipe.num_wide} wide candidates")
+    mesh, spec, start, target, pipe = torus_case(dev, n, faces)
+    vs = spec.voxel_size
 
     t0 = time.perf_counter()
     plan = make_soft_plan(Mesh(name="start", coords=start, faces=mesh.faces,
@@ -1171,11 +1210,29 @@ def barrier(world: int) -> None:
         dist.barrier()
 
 
-def sharded_vox_part(world, rank, dev, inputs, out, directory) -> None:
-    """voxelize_sharded on phase 4's two washers at MAIN_N, on (1, W) and
-    (W, 1), both exchanges: each rank writes its slab; returns this
-    rank's (1, W) ring slabs for the JFA."""
+def world_layout(world: int) -> dict:
+    """The (d, z) mesh shapes a world runs each part on: vox on (1, W),
+    (W, 1) and, from 4 ranks, (2, W / 2); the JFA and the MAIN_N fits on
+    (1, W) and, from 4 ranks, (2, W / 2)."""
+    if world == 1:
+        return {"vox": ((1, 1),), "jfa": ((1, 1),), "fit": ((1, 1),)}
+    both = ((2, world // 2),) if world >= 4 else ()
+    return {"vox": ((1, world), (world, 1)) + both, "jfa": ((1, world),) + both,
+            "fit": ((1, world),) + both}
+
+
+def fit_key(name: str, shape, world: int) -> str:
+    """A MAIN_N fit's key: the engine's name on (1, W), with the shape
+    on another mesh."""
+    return name if tuple(shape) == (1, world) else f"{name}@{shape[0]}x{shape[1]}"
+
+
+def sharded_vox_part(world, rank, dev, inputs, out, directory) -> dict:
+    """voxelize_sharded on phase 4's two washers at MAIN_N on each of
+    `world_layout`'s vox shapes, both exchanges: each rank writes its
+    slab; returns this rank's ring slabs of each JFA shape."""
     import numpy as np
+    import torch
 
     from voxtpu_torch.grids.voxel_grid import GridSpec
     from voxtpu_torch.mesh.mesh import Mesh
@@ -1187,34 +1244,62 @@ def sharded_vox_part(world, rank, dev, inputs, out, directory) -> None:
     spec = GridSpec(*inputs["spec"])
     meshes = [Mesh(name=f"washer_{i}", coords=c, faces=f, faces_normals=f)
               for i, (c, f) in enumerate(inputs["washers"])]
+    layout = world_layout(world)
     t0 = time.perf_counter()
     plans = [FragmentPlan(m, spec, dev) for m in meshes]
+    torch.cuda.synchronize()
     world_log(rank, world, f"vox: two FragmentPlans in {time.perf_counter() - t0:.1f} s")
-    kept = []
-    for shape in ((1, world), (world, 1)) if world > 1 else ((1, 1),):
+    kept = {}
+    for shape in layout["vox"]:
         dmesh = global_mesh(("d", "z"), shape)
         for i, m in enumerate(meshes):
             for exchange in ("ring", "gather"):
                 C.staged_bytes.count = 0
+                torch.cuda.reset_peak_memory_stats()
                 barrier(world)
                 t0 = time.perf_counter()
                 grid = voxelize_sharded(m, spec, dmesh, plan=plans[i], exchange=exchange)
                 barrier(world)
                 wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2**30
                 np.save(os.path.join(directory, f"vox_{i}_{shape[0]}x{shape[1]}_{exchange}"
                                                  f"_r{rank}.npy"), grid.words.cpu().numpy())
+                out["vox", i, shape, exchange] = {"wall": wall, "staged": C.staged_bytes(),
+                                                  "peak": peak}
                 world_log(rank, world, f"voxelize_sharded washer {i} on {shape} {exchange}: "
                           f"{wall:.3f} s, slab {tuple(grid.words.shape)}, staged "
-                          f"{C.staged_bytes() / 1e6:.1f} MB")
-                if shape == (1, world) and exchange == "ring":
-                    kept.append(grid.words)
+                          f"{C.staged_bytes() / 1e6:.1f} MB, peak {peak:.2f} GiB")
+                if shape in layout["jfa"] and exchange == "ring":
+                    kept.setdefault(shape, []).append(grid.words)
     return kept
 
 
+def exchange_s(state, fills, k: int, slab: int, group, z: int, dz: int) -> float:
+    """Seconds the send/recv of one flood step at stride k takes alone
+    (`sharded_jfa`'s exchanges without the step: k-plane halos both
+    ways, or the whole slabs at z -/+ k / slab), between a synchronise
+    and a barrier on every rank before and after."""
+    import torch.distributed as dist
+
+    from voxtpu_torch.parallel import sharded_jfa as SJ
+
+    barrier(dist.get_world_size())
+    t0 = time.perf_counter()
+    for s, fill in zip(state, fills):
+        if k < slab:
+            SJ._halos(s, k, group, z, dz)
+        else:
+            for shift in (-(k // slab), k // slab):
+                SJ._fetch_slab(s, shift, group, z, dz, fill)
+    barrier(dist.get_world_size())
+    return time.perf_counter() - t0
+
+
 def sharded_jfa_part(world, rank, dev, inputs, out, directory, slabs) -> None:
-    """jfa_sharded on the union of the two washers' (1, W) slabs, packed
-    and wide: each rank writes its field's slab; the flood is replayed
-    step by step (bitwise the call) for each step's time."""
+    """jfa_sharded on the union of the two washers' ring slabs of each
+    JFA shape, packed and wide: each rank writes its field's slab; on
+    (1, W) the flood is replayed step by step (bitwise the call) for
+    each step's time and the rate its exchange moved at."""
     import numpy as np
     import torch
 
@@ -1224,44 +1309,57 @@ def sharded_jfa_part(world, rank, dev, inputs, out, directory, slabs) -> None:
     from voxtpu_torch.parallel.distributed import global_mesh
 
     spec = GridSpec(*inputs["spec"])
-    n, slab = spec.n, spec.n // world
-    dmesh = global_mesh(("d", "z"), (1, world))
-    occ = unpack_bits(slabs[0] | slabs[1])
-    group, z = dmesh.get_group("z"), dmesh.get_local_rank("z")
-    for encoding in ("packed", "wide"):
-        C.staged_bytes.count = 0
-        torch.cuda.reset_peak_memory_stats()
-        barrier(world)
-        t0 = time.perf_counter()
-        sdf = SJ.jfa_sharded(occ, spec, dmesh, encoding=encoding)
-        barrier(world)
-        wall = time.perf_counter() - t0
-        staged = C.staged_bytes()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        np.save(os.path.join(directory, f"jfa_{encoding}_r{rank}.npy"), sdf.cpu().numpy())
-        fills = SJ._FILLS[encoding]
-        sel_fn, out_fn = SJ._metrics(spec, slab, z, encoding, dev)
-        steps = []
-        barrier(world)
-        t0 = time.perf_counter()
-        state = SJ._init_local(occ, n, slab, group, z, world, encoding)
-        barrier(world)
-        init_s = time.perf_counter() - t0
-        for k, step in SJ.flood_steps(spec, world):
-            t0 = time.perf_counter()
-            state = step(state, fills, sel_fn, k, slab, group, z, world)
+    for shape in world_layout(world)["jfa"]:
+        dz = shape[1]
+        n, slab = spec.n, spec.n // dz
+        dmesh = global_mesh(("d", "z"), shape)
+        occ = unpack_bits(slabs[shape][0] | slabs[shape][1])
+        group, z = dmesh.get_group("z"), dmesh.get_local_rank("z")
+        for encoding in ("packed", "wide"):
+            C.staged_bytes.count = 0
+            torch.cuda.reset_peak_memory_stats()
             barrier(world)
-            steps.append((k, time.perf_counter() - t0))
-        one = torch.ones((), dtype=torch.float32, device=dev)
-        replay = torch.where(occ, one, -one) * out_fn(state)
-        require(bitwise_equal(replay, sdf), f"jfa_sharded {encoding}: the replayed flood "
-                "differs from the call")
-        out["jfa", encoding] = {"wall": wall, "init": init_s, "steps": steps,
-                                "staged": staged, "peak": peak}
-        world_log(rank, world, f"jfa_sharded {encoding} at {n}^3 on (1, {world}): {wall:.3f} s "
-                  f"wall, staged {staged / 1e6:.1f} MB, peak {peak:.2f} GiB; init "
-                  f"{init_s:.3f} s; steps " + ", ".join(f"k={k} {t:.3f}" for k, t in steps))
-        del sdf, replay, state
+            t0 = time.perf_counter()
+            sdf = SJ.jfa_sharded(occ, spec, dmesh, encoding=encoding)
+            barrier(world)
+            wall = time.perf_counter() - t0
+            staged = C.staged_bytes()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            np.save(os.path.join(directory, f"jfa_{encoding}_{shape[0]}x{shape[1]}_r{rank}.npy"),
+                    sdf.cpu().numpy())
+            res = {"wall": wall, "staged": staged, "peak": peak}
+            out["jfa", shape, encoding] = res
+            line = (f"jfa_sharded {encoding} at {n}^3 on {shape}: {wall:.3f} s wall, staged "
+                    f"{staged / 1e6:.1f} MB, peak {peak:.2f} GiB")
+            if shape == (1, world):
+                fills = SJ._FILLS[encoding]
+                sel_fn, out_fn = SJ._metrics(spec, slab, z, encoding, dev)
+                steps = []
+                barrier(world)
+                t0 = time.perf_counter()
+                state = SJ._init_local(occ, n, slab, group, z, dz, encoding)
+                barrier(world)
+                res["init"] = time.perf_counter() - t0
+                for k, step in SJ.flood_steps(spec, dz):
+                    sent = SJ.comm_bytes_per_step(n, dz, encoding, k) if dz > 1 else 0
+                    moved = exchange_s(state, fills, k, slab, group, z, dz) if sent else 0.0
+                    barrier(world)
+                    t0 = time.perf_counter()
+                    state = step(state, fills, sel_fn, k, slab, group, z, dz)
+                    barrier(world)
+                    steps.append((k, time.perf_counter() - t0, sent, moved))
+                one = torch.ones((), dtype=torch.float32, device=dev)
+                replay = torch.where(occ, one, -one) * out_fn(state)
+                require(bitwise_equal(replay, sdf), f"jfa_sharded {encoding}: the replayed "
+                        "flood differs from the call")
+                res["steps"] = steps
+                line += f"; init {res['init']:.3f} s; steps " + ", ".join(
+                    f"k={k} {t:.3f} s" + (f" (sends {b / 1e9:.3f} GB: the exchange alone "
+                                          f"{x * 1e3:.2f} ms, {b / x / 1e9:.1f} GB/s)"
+                                          if b else "") for k, t, b, x in steps)
+                del replay, state
+            world_log(rank, world, line)
+            del sdf
 
 
 def sharded_engine(name, soft_plan, start, dmesh, lr, *, n_small=False):
@@ -1403,9 +1501,10 @@ def sharded_fit_run(world, rank, dev, name, soft_plan, start, target, shape, lr,
 
 def sharded_fit_part(world, rank, dev, inputs, out, directory) -> None:
     """The three kernel engines at MAIN_N on phase 6's torus, target and
-    start on (1, W) (one step in a world of 1, SHARDED_STEPS in a larger
-    one); the plain engine one step at KERNEL_N on phase 5's icosphere
-    on (1, W); the cuda engine's gradient at KERNEL_N on (W, 1). Each
+    start on each of `world_layout`'s fit shapes (``inputs["steps1"]``
+    steps in a world of 1, 1 by default; SHARDED_STEPS in a larger one);
+    the plain engine one step at KERNEL_N on phase 5's icosphere on
+    (1, W); the cuda engine's gradient at KERNEL_N on (W, 1). Each
     gradient is written for the parent."""
     import numpy as np
     import torch
@@ -1427,14 +1526,18 @@ def sharded_fit_part(world, rank, dev, inputs, out, directory) -> None:
     if world > 1:
         g = torch.from_numpy(np.random.default_rng(7).standard_normal(
             (spec.n,) * 3).astype(np.float32)).to(dev)
-    steps = 1 if world == 1 else SHARDED_STEPS
+    steps = inputs.get("steps1", 1) if world == 1 else SHARDED_STEPS
     lr = TRAIN_LR_VOX * spec.voxel_size
-    for name in ("cuda", "fused", "seg"):
-        grad = sharded_fit_run(world, rank, dev, name, soft_plan, start, target, (1, world),
-                               lr, steps, out, name, g=g)
-        if rank == 0:
-            np.save(os.path.join(directory, f"grad_{name}.npy"), grad)
-        torch.cuda.empty_cache()
+    for shape in world_layout(world)["fit"]:
+        for name in ("cuda", "fused", "seg"):
+            key = fit_key(name, shape, world)
+            # The kernels are held on every rank's plan of the first mesh.
+            held = g if shape == (1, world) else None
+            grad = sharded_fit_run(world, rank, dev, name, soft_plan, start, target, shape,
+                                   lr, steps, out, key, g=held)
+            if rank == 0:
+                np.save(os.path.join(directory, f"grad_{key}.npy"), grad)
+            torch.cuda.empty_cache()
     del target, g
     mesh, sp = soft_case(KERNEL_N)
     small = torch.from_numpy(mesh.coords).to(dev)
@@ -1448,6 +1551,17 @@ def sharded_fit_part(world, rank, dev, inputs, out, directory) -> None:
             np.save(os.path.join(directory, f"grad_{key}.npy"), grad)
 
 
+def world_card(world: int, backend: str) -> int | None:
+    """A rank's card: None (the rank's own, `init_distributed`'s choice)
+    for an NCCL world on a host with a card a rank; 0 for a gloo world,
+    whose ranks share the first card."""
+    import torch
+
+    if backend == "nccl" and torch.cuda.device_count() >= world:
+        return None
+    return 0
+
+
 def sharded_rank(world: int, rank: int, backend: str, directory: str) -> int:
     """A rank of phase 6b's world: vox, JFA and the fits; writes what
     the parent checks to `directory` (results in rank{rank}.pkl)."""
@@ -1457,13 +1571,15 @@ def sharded_rank(world: int, rank: int, backend: str, directory: str) -> int:
 
     from voxtpu_torch.parallel.distributed import init_distributed, shutdown_distributed
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    init_distributed(f"file://{directory}/rendezvous", world, rank, backend=backend)
+    card = world_card(world, backend)
+    init_distributed(f"file://{directory}/rendezvous", world, rank,
+                     None if card is None else [card], backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world_log(rank, world, f"{backend} rank on {dev} ({torch.cuda.get_device_name(dev)})")
     try:
         with open(os.path.join(directory, "..", "inputs.pkl"), "rb") as f:
             inputs = pickle.load(f)
-        out = {}
+        out = {"device": str(dev)}
         slabs = sharded_vox_part(world, rank, dev, inputs, out, directory)
         sharded_jfa_part(world, rank, dev, inputs, out, directory, slabs)
         del slabs
@@ -1476,19 +1592,23 @@ def sharded_rank(world: int, rank: int, backend: str, directory: str) -> int:
     return 0
 
 
-def run_world(world: int, backend: str, directory: str, timeout: float) -> list:
-    """Start `world` ranks of this script (`--sharded-rank`), wait for
-    them within `timeout` seconds, print their logs; any rank's failure
-    or the timeout fails the phase. Returns each rank's results."""
+def run_world(world: int, backend: str, directory: str, timeout: float, argv=None) -> list:
+    """Start `world` ranks of this script (`--sharded-rank`; or the
+    command `argv(rank)`), wait for them within `timeout` seconds, print
+    their logs; any rank's failure or the timeout fails the phase.
+    Returns each rank's results (``rank{r}.pkl`` in `directory`)."""
     import pickle
 
+    if argv is None:
+        def argv(r):
+            return [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(world),
+                    str(r), backend, directory]
     os.makedirs(directory)
     logs = [open(os.path.join(directory, f"log{r}.txt"), "w") for r in range(world)]
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "4"}
     env.pop("LOCAL_RANK", None)
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
-                               str(world), str(r), backend, directory], cwd=ROOT, env=env,
-                              stdout=log, stderr=subprocess.STDOUT)
+    procs = [subprocess.Popen(argv(r), cwd=ROOT, env=env, stdout=log,
+                              stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
     t0 = time.perf_counter()
     try:
@@ -1517,22 +1637,10 @@ def run_world(world: int, backend: str, directory: str, timeout: float) -> list:
     return out
 
 
-def sharded_paths(dev, errs, timings, bounds, card, washers, fit_case):
-    """Phase 6b: voxtpu_torch.parallel in a world of 1 on NCCL and a
-    world of 2 on gloo, both ranks on this card (NCCL refuses two ranks
-    on one device), each rank a process of this script. The kernels
-    were built in phase 2. Checks: every assembled vox grid xor 0
-    against the banded pipeline's; the JFA slabs bitwise the CLI's SDF
-    (packed, B3 + B5) and `jfa_wide`; world 1's fits equal the
-    single-device engines (loss 1e-6 relative, gradient 1e-3 x max|g|);
-    world 2's first loss phase 6's within 1e-5 relative, its gradients
-    world 1's within 1e-3 x max|g|, the loss falling over its steps, the
-    coordinates bitwise equal on both ranks; the kernels launched on
-    each rank and held on its plan. Returns the sharded launch counts
-    (summed over world 2's ranks), each kernel's largest error on the
-    ranks' plans, and B13's times and bounds on rank 0's plan."""
-    import pickle
-
+def sharded_references(dev, washers) -> tuple:
+    """(spec, want) for the sharded checks at MAIN_N on `washers`: each
+    washer's banded grid, and the CLI's SDF route (B3 + B5) and
+    `jfa_wide` on their union, as NumPy arrays."""
     import numpy as np
     import torch
 
@@ -1541,7 +1649,7 @@ def sharded_paths(dev, errs, timings, bounds, card, washers, fit_case):
     from voxtpu_torch.ops.jfa import jfa, jfa_wide
     from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
 
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     spec = GridSpec.fit(np.concatenate([m.coords for m in washers]), MAIN_N)
     with uncounted(vox_slots_banded.banded_fill, vox_cuda.wide_fill, jfa_cuda.flood_step,
                    jfa_cuda.sdf_from_seed):
@@ -1554,18 +1662,70 @@ def sharded_paths(dev, errs, timings, bounds, card, washers, fit_case):
     del grids, occ
     torch.cuda.empty_cache()
     print(f"references (banded grids, the CLI's SDF route, jfa_wide) in "
-          f"{time.perf_counter() - t_phase:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s")
+    return spec, want
+
+
+def run_worlds(worlds, washers, spec, want, fit_case, tmp, steps1: int = 1) -> dict:
+    """Each (world, backend, timeout) of `worlds` in turn, world 1 first
+    (its gradients are every later world's reference, and where
+    `fit_case` has no "first" losses, its single-device losses become
+    them); each world checked by `check_world`. Returns each world's
+    rank results."""
+    import pickle
+
     inputs = {"washers": [(m.coords, m.faces) for m in washers],
-              "spec": (spec.n, spec.origin, spec.voxel_size), "fit": fit_case}
+              "spec": (spec.n, spec.origin, spec.voxel_size), "fit": fit_case,
+              "steps1": steps1}
+    with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    results = {}
+    for world, backend, timeout in worlds:
+        wdir = os.path.join(tmp, f"world{world}")
+        results[world] = run_world(world, backend, wdir, timeout)
+        check_world(world, backend, wdir, results[world], want, fit_case,
+                    os.path.join(tmp, "world1"))
+        if world == 1 and "first" not in fit_case:
+            fit_case["first"] = {k: results[1][0][k]["single"][0]
+                                 for k in ("cuda", "fused", "seg")}
+    return results
+
+
+def dryrun_on_card(n_ranks: int, timeout: float = 600) -> str:
+    """`python -m voxtpu_torch.parallel.dryrun N` (voxtpu's
+    dryrun_multichip: one rank a card on NCCL); returns its line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "voxtpu_torch.parallel.dryrun", str(n_ranks)],
+                          capture_output=True, text=True, cwd=ROOT, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip(")]
+    require(proc.returncode == 0 and len(lines) == 1,
+            f"dryrun {n_ranks} exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+            f"{proc.stderr[-4000:]}")
+    print(f"{lines[0]}  ({time.perf_counter() - t0:.1f} s, NCCL, {n_ranks} rank(s))")
+    return lines[0]
+
+
+def sharded_paths(dev, errs, timings, bounds, card, washers, fit_case):
+    """Phase 6b: voxtpu_torch.parallel in a world of 1 on NCCL and a
+    world of 2 on gloo, both ranks on this card (NCCL refuses two ranks
+    on one device), each rank a process of this script; then voxtpu's
+    dryrun_multichip in a world of 1 on NCCL. The kernels were built in
+    phase 2. Checks (`check_world`): every assembled vox grid xor 0
+    against the banded pipeline's; the JFA slabs bitwise the CLI's SDF
+    (packed, B3 + B5) and `jfa_wide`; world 1's fits equal the
+    single-device engines (loss 1e-6 relative, gradient 1e-3 x max|g|);
+    world 2's first loss phase 6's within 1e-5 relative, its gradients
+    world 1's within 1e-3 x max|g|, the loss falling over its steps, the
+    coordinates bitwise equal on both ranks; the kernels launched on
+    each rank and held on its plan. Returns the sharded launch counts
+    (summed over world 2's ranks), each kernel's largest error on the
+    ranks' plans, and B13's times and bounds on rank 0's plan."""
+    t_phase = time.perf_counter()
+    spec, want = sharded_references(dev, washers)
     with tempfile.TemporaryDirectory(prefix="voxtpu_torch_sharded_") as tmp:
-        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
-            pickle.dump(inputs, f)
-        results = {}
-        for world, backend, timeout in ((1, "nccl", 420), (2, "gloo", 600)):
-            wdir = os.path.join(tmp, f"world{world}")
-            results[world] = run_world(world, backend, wdir, timeout)
-            check_world(world, wdir, results[world], want, fit_case,
-                        os.path.join(tmp, "world1"))
+        results = run_worlds(((1, "nccl", 420), (2, "gloo", 600)), washers, spec, want,
+                             fit_case, tmp)
     w2 = results[2]
     sharded_errs = {}  # each kernel's largest error on world 2's rank plans
     for r in w2:
@@ -1581,14 +1741,19 @@ def sharded_paths(dev, errs, timings, bounds, card, washers, fit_case):
         require(count > 0, f"world 2 never launched {k}")
     print(f"world 2 launches (both ranks, the 3 steps and their loss and gradient): "
           f"{launches}")
-    print("unchecked on one card: NCCL with more than one rank, more than one card, more "
-          "than one host; world 2's times measure staging through the host, not scaling")
+    dryrun_on_card(1)
+    print("unchecked on one card: NCCL with more than one rank and more than one card "
+          "(tools/check_sharded_cards.py on four), more than one host; world 2's times "
+          "measure staging through the host, not scaling")
     print(f"phase 6b: {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches, sharded_errs, w2[0]["cuda"]["timings"], w2[0]["cuda"]["bounds"]
 
 
-def check_world(world, wdir, res, want, fit_case, w1dir) -> None:
-    """Phase 6b's checks of one world's results (see `sharded_paths`)."""
+def check_world(world, backend, wdir, res, want, fit_case, w1dir) -> None:
+    """Phase 6b's checks of one world's results (see `sharded_paths`);
+    under NCCL also: each rank on its own card, nothing staged through
+    the host on any rank, and every counted kernel launched on every
+    rank."""
     import numpy as np
 
     def assembled(fmt, shape):
@@ -1600,24 +1765,33 @@ def check_world(world, wdir, res, want, fit_case, w1dir) -> None:
                     f"world {world}: the d rows of {fmt} differ")
         return rows[0]
 
-    shapes = ((1, world), (world, 1)) if world > 1 else ((1, 1),)
-    for shape in shapes:
+    layout = world_layout(world)
+    nccl = backend == "nccl" and world > 1
+    if nccl:
+        cards = [r["device"] for r in res]
+        require(len(set(cards)) == world, f"world {world}: ranks share cards {cards}")
+        print(f"world {world}: ranks on {', '.join(cards)}")
+    for shape in layout["vox"]:
         for i in range(2):
             for exchange in ("ring", "gather"):
                 got = assembled(f"vox_{i}_{shape[0]}x{shape[1]}_{exchange}_r{{r}}.npy", shape)
                 xor = int(np.unpackbits((got ^ want["vox"][i]).view(np.uint8)).sum())
                 require(xor == 0, f"world {world}: washer {i} on {shape} {exchange}: xor "
                         f"popcount {xor}")
-    print(f"world {world}: every voxelize_sharded grid (2 washers x {len(shapes)} shapes x "
-          f"2 exchanges) xor popcount 0 against the banded pipeline")
-    for encoding in ("packed", "wide"):
-        got = assembled(f"jfa_{encoding}_r{{r}}.npy", (1, world))
-        require(np.array_equal(got.view(np.int32), want[encoding].view(np.int32)),
-                f"world {world}: jfa_sharded {encoding} differs from the single-device field")
-    print(f"world {world}: jfa_sharded packed bitwise the CLI's SDF route (B3 + B5), wide "
-          f"bitwise jfa_wide, at {MAIN_N}^3")
+    print(f"world {world}: every voxelize_sharded grid (2 washers x {len(layout['vox'])} "
+          f"shapes {layout['vox']} x 2 exchanges) xor popcount 0 against the banded pipeline")
+    for shape in layout["jfa"]:
+        for encoding in ("packed", "wide"):
+            got = assembled(f"jfa_{encoding}_{shape[0]}x{shape[1]}_r{{r}}.npy", shape)
+            require(np.array_equal(got.view(np.int32), want[encoding].view(np.int32)),
+                    f"world {world}: jfa_sharded {encoding} on {shape} differs from the "
+                    "single-device field")
+    print(f"world {world}: jfa_sharded on {layout['jfa']} packed bitwise the CLI's SDF route "
+          f"(B3 + B5), wide bitwise jfa_wide, at {MAIN_N}^3")
     ranks = range(world)
-    for key in ("cuda", "fused", "seg", f"plain{KERNEL_N}", f"cuda{KERNEL_N}"):
+    fits = [(fit_key(name, shape, world), name) for shape in layout["fit"]
+            for name in ("cuda", "fused", "seg")]
+    for key, name in fits + [(f"plain{KERNEL_N}", "plain"), (f"cuda{KERNEL_N}", "cuda")]:
         r0 = res[0][key]
         require(all(np.isfinite(r[key]["loss"]) for r in res), f"{key}: non-finite loss")
         require(all(r[key]["loss"] == r0["loss"] for r in res), f"{key}: ranks' losses differ")
@@ -1632,27 +1806,40 @@ def check_world(world, wdir, res, want, fit_case, w1dir) -> None:
             err, top = float(np.abs(grad - grad1).max()), float(np.abs(grad1).max())
             require(err <= GRAD_TOL * top, f"world 1 {key}: gradient {err:.3e} > "
                     f"{GRAD_TOL} x {top:.3e}")
-            print(f"world 1 {key}: loss {r0['loss']:.7f} (single device {loss1:.7f}), "
-                  f"gradient max_abs_err {err:.3e} (max |g| {top:.3e})")
+            line = (f"world 1 {key}: loss {r0['loss']:.7f} (single device {loss1:.7f}), "
+                    f"gradient max_abs_err {err:.3e} (max |g| {top:.3e})")
+            if r0["losses"]:
+                line += "; step walls " + ", ".join(f"{w:.3f}" for w in r0["walls"]) + " s"
+            print(line)
             continue
-        ref = np.load(os.path.join(w1dir, f"grad_{key}.npy"))
+        ref = np.load(os.path.join(w1dir, f"grad_{key.split('@')[0]}.npy"))
         err, top = float(np.abs(grad - ref).max()), float(np.abs(ref).max())
-        require(err <= GRAD_TOL * top, f"world 2 {key}: gradient against world 1's "
+        require(err <= GRAD_TOL * top, f"world {world} {key}: gradient against world 1's "
                 f"{err:.3e} > {GRAD_TOL} x {top:.3e}")
-        line = (f"world 2 {key}: gradient against world 1's max_abs_err {err:.3e} (max |g| "
-                f"{top:.3e}); loss {r0['loss']:.7f}")
-        if key in fit_case["first"]:
-            first = fit_case["first"][key]
-            require(abs(r0["loss"] - first) <= 1e-5 * first, f"world 2 {key}: first loss "
-                    f"{r0['loss']} against phase 6's {first}")
+        line = (f"world {world} {key}: gradient against world 1's max_abs_err {err:.3e} (max "
+                f"|g| {top:.3e}); loss {r0['loss']:.7f}")
+        if key.split("@")[0] in fit_case["first"]:
+            first = fit_case["first"][name]
+            require(abs(r0["loss"] - first) <= 1e-5 * first, f"world {world} {key}: first "
+                    f"loss {r0['loss']} against phase 6's {first}")
             line += f", phase 6's {first:.7f}"
-            require(r0["final"] < r0["loss"], f"world 2 {key}: the loss did not fall")
+            require(r0["final"] < r0["loss"], f"world {world} {key}: the loss did not fall")
         if r0["losses"]:
             line += (f"; after {len(r0['losses'])} steps {r0['final']:.7f}; step walls "
                      + ", ".join(f"{w:.3f}" for w in r0["walls"]) + " s")
         line += "; peak GiB " + ", ".join(f"{r[key]['peak']:.2f}" for r in res)
         line += f"; staged {r0['staged'] / 1e9:.3f} GB a rank"
+        if nccl and key in dict(fits):
+            for r in ranks:
+                require(all(c > 0 for c in res[r][key]["launches"].values()),
+                        f"world {world} {key}: rank {r} launches {res[r][key]['launches']}")
+            line += "; launches on every rank"
         print(line)
+    if nccl:
+        staged = [(k, r) for r in ranks for k, v in res[r].items()
+                  if isinstance(v, dict) and v.get("staged")]
+        require(not staged, f"world {world} staged bytes through the host: {staged}")
+        print(f"world {world}: staged_bytes 0 on every rank (vox, JFA, fits)")
 
 
 def fit_example(dev) -> None:
@@ -2458,6 +2645,48 @@ def traced_cli(dev) -> None:
           f"{fills[0]} present; the kernels that are not PyTorch's: {', '.join(ours)}")
 
 
+def native_cli(dev) -> None:
+    """Phase 4d: the CLI's -t 3 (voxtpu's native C++/OpenMP backend on
+    the host, its results on the card) at TRACE_N on two small washers
+    (-p 1 -s): the folded grid xor 0 against -t 0's, the SDF within
+    rtol 1e-6 of the oracle's (-t 0; on this dyadic grid fit it is
+    bitwise), both on the card; prints -t 3's wall."""
+    import torch
+
+    from voxtpu_torch import cli
+    from voxtpu_torch.mesh import procedural
+    from voxtpu_torch.mesh.mesh import Mesh
+    from voxtpu_torch.mesh.obj_io import export_mesh
+
+    with tempfile.TemporaryDirectory(prefix="voxtpu_torch_native_") as tmp:
+        paths = []
+        for name, center in (("ring_a", (2.0, 2.0, 2.0)), ("ring_b", (2.5, 2.0, 2.0625))):
+            c, f = procedural.washer(0.75, 1.0, 0.25, 96, center=center)
+            paths.append(os.path.join(tmp, f"{name}.obj"))
+            export_mesh(paths[-1], Mesh(name=name, coords=c, faces=f, faces_normals=f))
+        argv = [*paths, "-n", str(TRACE_N), "-p", "1", "-s", "--device", str(dev)]
+        t0 = time.perf_counter()
+        nat = cli.run([*argv, "-t", "3"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = cli.run([*argv, "-t", "0"])
+        ref_wall = time.perf_counter() - t0
+    require(nat.sdf.is_cuda and nat.grids[0].words.is_cuda, "-t 3's results are not on the card")
+    x = xor_popcount(nat.grids[0].words, ref.grids[0].words)
+    require(x == 0, f"-t 3 grid differs from -t 0 (xor popcount {x})")
+    require(nat.grids[0].count() > 0, "-t 3 grid is empty")
+    a, b = nat.sdf, ref.sdf
+    fin = torch.isfinite(b)
+    require(bool((torch.isfinite(a) == fin).all()) and bool((a[~fin] == b[~fin]).all()),
+            "-t 3 SDF: its infinities differ from the oracle's")
+    far = int(((a[fin] - b[fin]).abs() > 1e-6 * b[fin].abs()).sum())
+    require(far == 0, f"-t 3 SDF: {far} voxels beyond rtol 1e-6 of the oracle's")
+    print(f"CLI -t 3 --device {dev} at {TRACE_N}^3 (-p 1 -s): wall {wall:.2f} s (-t 0 "
+          f"{ref_wall:.2f} s); grid ({nat.grids[0].count():,} voxels) xor 0 against -t 0; "
+          f"SDF within rtol 1e-6 of the oracle (bitwise: {bitwise_equal(a, b)})")
+
+
 def wide_cli(dev, paths) -> None:
     """Phase 4d: the CLI at WIDE_N (-t 2 -p 1 -s) on phase 4's two
     washers. The SDF must come from the wide flood: B1 and B2 launch, B3,
@@ -2685,10 +2914,8 @@ def run() -> int:
     # ---- 4. main path -------------------------------------------------------
     phase(f"4. main path: CLI at {MAIN_N}^3, two meshes of {MAIN_FACES:,} faces")
     t0 = time.perf_counter()
-    c, f = procedural.washer(0.85, 1.0, 0.16, nu=64)
-    c, f = procedural.subdivide_to(c, f, MAIN_FACES)
-    require(len(f) == MAIN_FACES, "face count")
-    shifted = (c + [0.9, 0.0, 0.05]).astype(c.dtype)
+    washer_a, washer_b = washer_meshes()
+    c, f, shifted = washer_a.coords, washer_a.faces, washer_b.coords
     with tempfile.TemporaryDirectory(prefix="voxtpu_torch_smoke_") as tmp:
         paths = [os.path.join(tmp, "washer_a.obj"), os.path.join(tmp, "washer_b.obj")]
         export_mesh(paths[0], mesh_of(c, f, "washer_a"))
@@ -2860,6 +3087,7 @@ def run() -> int:
     phase(f"4d. the CLI's SDF at {WIDE_N}^3 on the wide flood; --trace at {TRACE_N}^3")
     t_phase = time.perf_counter()
     traced_cli(dev)
+    native_cli(dev)
     with tempfile.TemporaryDirectory(prefix="voxtpu_torch_wide_") as tmp:
         paths = [os.path.join(tmp, "washer_a.obj"), os.path.join(tmp, "washer_b.obj")]
         export_mesh(paths[0], mesh_of(c, f, "washer_a"))

@@ -4,25 +4,36 @@
 //
 // A launch runs its clusters one after another (a launch without a
 // cluster size: its blocks, as clusters of one); a cluster's blocks run
-// together, each with its own shared-memory buffer, and a block's threads
-// run as host threads, so that __syncthreads, __syncthreads_or and
-// __any_sync are barriers among them, cluster.sync() a barrier among the
-// cluster's threads, map_shared_rank the same offset in a sibling's
-// buffer, and __syncwarp and the shuffles barriers among a warp's
-// threads. Atomics are std::atomic_ref operations. cp.async copies are queued by the copying
-// thread and land when a wait requires their group (the latest a card
-// may land them). Float operations round to nearest on their own, as
-// __fadd_rn and friends do on the card (build with -ffp-contract=off).
+// together, each with its own shared-memory buffer, and every thread of
+// the cluster is a fiber (its own stack, switched with swapcontext) on
+// the calling OS thread. A fiber runs until it waits at a barrier, then
+// hands the thread to the next fiber in turn, so __syncthreads,
+// __syncthreads_or and __any_sync are barriers among a block's fibers,
+// cluster.sync() a barrier among the cluster's, map_shared_rank the same
+// offset in a sibling's buffer, and __syncwarp and the shuffles barriers
+// among a warp's. One OS thread a launch keeps a test's cost the same
+// whatever else loads the machine's cores. A barrier that can never
+// complete (a kernel whose threads diverge around one) aborts with a
+// message instead of hanging. Atomics are std::atomic_ref operations.
+// cp.async copies are queued by the copying thread and land when a wait
+// requires their group (the latest a card may land them). Float
+// operations round to nearest on their own, as __fadd_rn and friends do
+// on the card (build with -ffp-contract=off).
 #pragma once
 
 #include <algorithm>
+#include <sys/mman.h>
+#include <ucontext.h>
+
+#include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <type_traits>
 #include <utility>
 #include <vector>
@@ -81,7 +92,6 @@ using std::fmaxf;
 using std::fminf;
 using std::isfinite;
 
-inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
 inline int min(int a, int b) { return a < b ? a : b; }
@@ -137,26 +147,86 @@ inline int atomicMax(int* p, int v) {
   return cur;
 }
 
+struct EmuFiber;
+inline thread_local EmuFiber* emu_cur = nullptr;  // the running fiber
+inline thread_local std::uint64_t emu_idle = 0;   // hand-overs since a barrier moved
+inline thread_local std::uint64_t emu_live = 0;   // the launch's unfinished fibers
+
+// Hand the OS thread to the next fiber that has not finished.
+inline void emu_yield();
+
+// A barrier of n fibers (std::barrier's arrive_and_wait, for fibers).
+struct EmuBarrier {
+  int n, count = 0;
+  unsigned gen = 0;
+  explicit EmuBarrier(int n_) : n(n_) {}
+  void arrive_and_wait() {
+    emu_idle = 0;
+    const unsigned g = gen;
+    if (++count == n) {
+      count = 0;
+      ++gen;
+      return;
+    }
+    while (gen == g) emu_yield();
+  }
+};
+
 struct EmuBlock {
-  std::unique_ptr<std::barrier<>> bar;
-  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  std::unique_ptr<EmuBarrier> bar;
+  std::vector<std::unique_ptr<EmuBarrier>> warp_bar;
   std::atomic<int> acc[3];
   std::atomic<int> warp_acc[32][3];
   std::uint64_t warp_x[32][32];  // a shuffle's values, a warp's lanes
 };
-inline thread_local EmuBlock* emu_block = nullptr;
 struct EmuCluster {
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<EmuBarrier> bar;
   int size;
 };
-inline thread_local EmuCluster* emu_cluster = nullptr;
-inline thread_local int emu_rank = 0;
 
 constexpr int kEmuMaxCluster = 16;
 constexpr size_t kEmuSmem = 232448;  // a block's most on the card
 alignas(16) inline unsigned char emu_smem_pool[kEmuMaxCluster][kEmuSmem];
-inline thread_local unsigned char* emu_smem = nullptr;  // this block's buffer
-inline thread_local int emu_or_calls = 0, emu_vote_calls = 0;
+
+// What a CUDA thread keeps for itself: its indices, its block and
+// cluster, its vote counters and its cp.async groups.
+struct EmuFiber {
+  ucontext_t ctx;
+  dim3 thread_idx, block_idx;
+  EmuBlock* block = nullptr;
+  EmuCluster* cluster = nullptr;
+  int rank = 0;
+  unsigned char* smem = nullptr;  // this block's buffer
+  int or_calls = 0, vote_calls = 0;
+  std::vector<std::vector<std::pair<int*, int>>> groups;
+  std::vector<std::pair<int*, int>> open;
+  std::function<void()> body;
+  EmuFiber *next = nullptr, *prev = nullptr;  // the ring of unfinished fibers
+  bool done = false;
+};
+#define threadIdx (emu_cur->thread_idx)
+#define blockIdx (emu_cur->block_idx)
+#define emu_block (emu_cur->block)
+#define emu_cluster (emu_cur->cluster)
+#define emu_rank (emu_cur->rank)
+#define emu_smem (emu_cur->smem)
+#define emu_or_calls (emu_cur->or_calls)
+#define emu_vote_calls (emu_cur->vote_calls)
+#define emu_groups (emu_cur->groups)
+#define emu_open (emu_cur->open)
+
+inline void emu_yield() {
+  EmuFiber* from = emu_cur;
+  EmuFiber* to = from->next;
+  if (++emu_idle > 2 * emu_live) {
+    std::fprintf(stderr, "cuda_emulation: every thread waits at a barrier that cannot "
+                         "complete (deadlock)\n");
+    std::abort();
+  }
+  if (to == from) return;
+  emu_cur = to;
+  swapcontext(&from->ctx, &to->ctx);
+}
 
 inline int emu_tid() {
   return threadIdx.x + threadIdx.y * blockDim.x + threadIdx.z * blockDim.x * blockDim.y;
@@ -208,8 +278,6 @@ inline T __shfl_up_sync(unsigned, T v, int d) {
   return emu_shfl(v, lane >= d ? lane - d : lane);
 }
 
-inline thread_local std::vector<std::vector<std::pair<int*, int>>> emu_groups;
-inline thread_local std::vector<std::pair<int*, int>> emu_open;
 inline void emu_copy(int* dst, const int* src) { emu_open.push_back({dst, *src}); }
 inline void emu_commit() {
   emu_groups.push_back(std::move(emu_open));
@@ -241,6 +309,18 @@ struct cluster_group {
 inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
 
+// A fiber's entry: it leaves the ring when its blocks are done, and
+// returning resumes the launch (uc_link).
+inline void emu_fiber_main() {
+  EmuFiber* f = emu_cur;
+  f->body();
+  f->done = true;
+  f->prev->next = f->next;
+  f->next->prev = f->prev;
+  --emu_live;
+  emu_idle = 0;
+}
+
 // Clusters of `cluster` consecutive blocks along x, one after another.
 template <typename Kernel, typename... Args>
 int emu_run(Kernel kernel, dim3 grid, dim3 block, size_t smem, int cluster, Args... args) {
@@ -253,36 +333,59 @@ int emu_run(Kernel kernel, dim3 grid, dim3 block, size_t smem, int cluster, Args
   std::vector<std::unique_ptr<EmuBlock>> blks;
   for (int r = 0; r < cluster; ++r) {
     auto blk = std::make_unique<EmuBlock>();
-    blk->bar = std::make_unique<std::barrier<>>(nt);
+    blk->bar = std::make_unique<EmuBarrier>(nt);
     for (int w = 0; w < (nt + 31) / 32; ++w)
-      blk->warp_bar.push_back(std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
+      blk->warp_bar.push_back(std::make_unique<EmuBarrier>(std::min(32, nt - 32 * w)));
     for (auto& a : blk->acc) a = 0;
     for (auto& w : blk->warp_acc)
       for (auto& a : w) a = 0;
     blks.push_back(std::move(blk));
   }
-  EmuCluster cl{std::make_unique<std::barrier<>>(cluster * nt), cluster};
-  std::vector<std::thread> threads;
-  for (int t = 0; t < cluster * nt; ++t)
-    threads.emplace_back([&, t] {
-      const int rank = t / nt, tid = t % nt;
-      emu_block = blks[rank].get();
-      emu_cluster = &cl;
-      emu_rank = rank;
-      emu_smem = emu_smem_pool[rank];
-      threadIdx = dim3(tid % block.x, (tid / block.x) % block.y, tid / (block.x * block.y));
-      emu_or_calls = emu_vote_calls = 0;
-      emu_groups.clear();
-      emu_open.clear();
+  EmuCluster cl{std::make_unique<EmuBarrier>(cluster * nt), cluster};
+  const int nf = cluster * nt;
+  constexpr size_t kStack = 128 << 10;
+  void* stacks = mmap(nullptr, kStack * nf, PROT_READ | PROT_WRITE,
+                      MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  if (stacks == MAP_FAILED) return cudaErrorInvalidConfiguration;
+  std::vector<std::unique_ptr<EmuFiber>> fibers(nf);
+  ucontext_t main_ctx;
+  for (int t = 0; t < nf; ++t) {
+    auto& f = fibers[t];
+    f = std::make_unique<EmuFiber>();
+    const int rank = t / nt, tid = t % nt;
+    f->block = blks[rank].get();
+    f->cluster = &cl;
+    f->rank = rank;
+    f->smem = emu_smem_pool[rank];
+    f->thread_idx = dim3(tid % block.x, (tid / block.x) % block.y, tid / (block.x * block.y));
+    f->body = [&, rank, f = f.get()] {
       for (unsigned bz = 0; bz < grid.z; ++bz)
         for (unsigned by = 0; by < grid.y; ++by)
           for (unsigned bx = 0; bx < grid.x; bx += cluster) {
-            blockIdx = dim3(bx + rank, by, bz);
+            f->block_idx = dim3(bx + rank, by, bz);
             kernel(args...);
-            cl.bar->arrive_and_wait();
+            f->cluster->bar->arrive_and_wait();
           }
-    });
-  for (auto& t : threads) t.join();
+    };
+    getcontext(&f->ctx);
+    f->ctx.uc_stack.ss_sp = static_cast<char*>(stacks) + kStack * t;
+    f->ctx.uc_stack.ss_size = kStack;
+    f->ctx.uc_link = &main_ctx;
+    makecontext(&f->ctx, emu_fiber_main, 0);
+  }
+  for (int t = 0; t < nf; ++t) {
+    fibers[t]->next = fibers[(t + 1) % nf].get();
+    fibers[t]->prev = fibers[(t + nf - 1) % nf].get();
+  }
+  emu_idle = 0;
+  emu_live = nf;
+  for (int t = 0; t < nf; ++t)
+    while (!fibers[t]->done) {  // each fiber that finishes hands back here
+      emu_cur = fibers[t].get();
+      swapcontext(&main_ctx, &fibers[t]->ctx);
+    }
+  emu_cur = nullptr;
+  munmap(stacks, kStack * nf);
   return cudaSuccess;
 }
 

@@ -12,6 +12,7 @@ import sys
 
 import pytest
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu_torch import _build
 
 FAKE_NVCC = f"""#!{sys.executable}

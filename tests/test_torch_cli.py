@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu_torch import cli
 from voxtpu_torch.mesh import procedural
 from voxtpu_torch.mesh.mesh import Mesh
@@ -122,11 +123,20 @@ def test_cli_device_cuda_without_a_card_exits_nonzero(tmp_path, capsys):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("t", ["3"])
-def test_cli_unported_backends_exit_with_message(tmp_path, capsys, t):
+def test_cli_native_backend_matches_reference_and_cuda(tmp_path, capsys):
+    """-t 3 (voxtpu's native C++ backend) runs: its grids and SDF equal
+    -t 0's and -t 2's on the dyadic washers, on --device."""
     paths = _write_meshes(tmp_path)
-    assert cli.main([paths[0], "-t", t, "--device", "cpu"]) != 0
-    assert "does not carry voxtpu's native C++ backend" in capsys.readouterr().err
+    flags = ["-n", "32", "-p", "3", "-s", "--device", "cpu"]
+    nat = cli.run([*paths, *flags, "-t", "3"])
+    assert nat.grids[0].count() > 0 and nat.sdf.device.type == "cpu"
+    out = capsys.readouterr().out
+    assert "[NativeVox(ring_a.obj)]:" in out and "[NativeCSG]:" in out
+    for t in ("0", "2"):
+        other = cli.run([*paths, *flags, "-t", t])
+        for a, b in zip(nat.grids, other.grids):
+            assert torch.equal(a.words, b.words), t
+        assert torch.equal(nat.sdf.view(torch.int32), other.sdf.view(torch.int32)), t
     assert cli.main(["--device", "cpu"]) != 0             # no input file
 
 

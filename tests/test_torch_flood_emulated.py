@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu_torch import _build
 from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.ops import jfa_cuda as J

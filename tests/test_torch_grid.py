@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.grids.voxel_grid import VoxelGrid as JGrid
 from voxtpu.grids.voxel_grid import pack_bits as j_pack_bits
@@ -85,9 +86,15 @@ def test_obj_text_and_roundtrip_match_voxtpu(tmp_path):
     fn = rng.integers(0, 7, faces.shape).astype(np.int32)
     kw = dict(coords=coords, faces=faces, colors=colors, normals=normals,
               faces_normals=fn)
-    export_mesh(tmp_path / "port.obj", Mesh(name="m", **kw))
+    # Both writers, each against voxtpu's: the Python one, and the native
+    # one that `use_native=True` (both packages' default) takes.
+    export_mesh(tmp_path / "port.obj", Mesh(name="m", **kw), use_native=False)
     j_export(tmp_path / "jax.obj", JMesh(name="m", **kw), use_native=False)
     assert (tmp_path / "port.obj").read_bytes() == (tmp_path / "jax.obj").read_bytes()
+    export_mesh(tmp_path / "port_native.obj", Mesh(name="m", **kw))
+    j_export(tmp_path / "jax_native.obj", JMesh(name="m", **kw))
+    assert ((tmp_path / "port_native.obj").read_bytes()
+            == (tmp_path / "jax_native.obj").read_bytes())
 
     got = import_mesh(tmp_path / "port.obj")
     ref = j_import(tmp_path / "jax.obj", use_native=False)

@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.ops.jfa import jfa as j_jfa
 from voxtpu.ops.jfa import jfa_init_seed as j_init_seed

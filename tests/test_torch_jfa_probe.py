@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.ops.jfa import jfa_init_seed as j_init_seed
 from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.ops import jfa_probe as P

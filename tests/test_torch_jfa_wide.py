@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.ops import jfa as JJ
 from voxtpu_torch import interop

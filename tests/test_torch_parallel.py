@@ -7,6 +7,7 @@ rules in a gloo world of 2 CPU processes (`tests/torch_parallel_worker.py`)."""
 import numpy as np
 import pytest
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from tests.torch_parallel_worker import World
 from voxtpu_torch.parallel.mesh_utils import mesh_shape
 
@@ -63,3 +64,43 @@ def test_collectives_take_voxtpus_transposes(world2):
         assert r["total"] == total
         np.testing.assert_array_equal(r["x_grad"], np.concatenate(w))
         assert r["staged"] == 0  # CPU tensors: nothing to stage
+
+
+@pytest.mark.parametrize("kw, card", [
+    (dict(device_count=4, local_device_ids=[2], local_rank=1, process_id=3), 2),
+    (dict(device_count=4, local_rank=1, process_id=3), 1),
+    (dict(device_count=4, process_id=6), 2),
+    (dict(device_count=4), 0),
+    (dict(device_count=4, process_id=3, ranks_on_host=4), 3),
+    (dict(device_count=1, process_id=1, ranks_on_host=2, backend="gloo"), 0),
+    (dict(device_count=1, local_device_ids=(0,), ranks_on_host=2, backend="gloo"), 0),
+])
+def test_rank_card_takes_the_first_of_ids_local_rank_and_process_id(kw, card):
+    from voxtpu_torch.parallel.distributed import rank_card
+
+    assert rank_card(**kw) == card
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(device_count=1, process_id=1, ranks_on_host=2), "NCCL takes one card a rank"),
+    (dict(device_count=4, local_rank=0, ranks_on_host=8), "NCCL takes one card a rank"),
+    (dict(device_count=2, local_device_ids=[2]), "card 2 does not exist"),
+    (dict(device_count=2, local_rank=5), "card 5 does not exist"),
+    (dict(device_count=4, local_device_ids=[0, 1]), "a rank holds one card"),
+    (dict(device_count=0), "no CUDA card"),
+])
+def test_rank_card_refuses_two_nccl_ranks_on_one_card(kw, match):
+    from voxtpu_torch.parallel.distributed import rank_card
+
+    with pytest.raises(ValueError, match=match):
+        rank_card(**kw)
+
+
+def test_rendezvous_on_this_host():
+    from voxtpu_torch.parallel.distributed import _on_this_host
+
+    for address in ("file:///tmp/rdv", "tcp://localhost:29500", "tcp://127.0.0.1:1234",
+                    "tcp://[::1]:1234"):
+        assert _on_this_host(address), address
+    for address in (None, "tcp://10.0.0.1:8476", "tcp://node3:29500"):
+        assert not _on_this_host(address), address

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from tests.torch_parallel_worker import World
 from voxtpu_torch import interop
 from voxtpu_torch.grids.voxel_grid import GridSpec

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.mesh.mesh import Mesh as JMesh
 from voxtpu.ops import csg as j_csg

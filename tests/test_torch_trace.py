@@ -14,6 +14,7 @@ import re
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu_torch import cli
 from voxtpu_torch.utils import logging as vlog
 from voxtpu_torch.utils.trace import annotate, trace

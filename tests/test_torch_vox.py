@@ -13,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.mesh.mesh import Mesh as JMesh
 from voxtpu.ops.reference import voxelize_ref as j_voxelize_ref

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
 from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.mesh.mesh import Mesh as JMesh
 from voxtpu.ops import vox_pallas as JP

@@ -204,7 +204,15 @@ def job_fit(rank, world, directory, cases):
     return out
 
 
-JOBS = {"bootstrap": job_bootstrap, "vox": job_vox, "jfa": job_jfa, "fit": job_fit}
+def job_dryrun(rank, world, directory, cases):
+    """The port's `dryrun_multichip` over the world (gloo, CPU)."""
+    from voxtpu_torch.parallel.dryrun import dryrun_multichip
+
+    return dryrun_multichip(world, device_type="cpu")
+
+
+JOBS = {"bootstrap": job_bootstrap, "vox": job_vox, "jfa": job_jfa, "fit": job_fit,
+        "dryrun": job_dryrun}
 
 
 def main(job: str, rank: int, world: int, directory: str) -> None:

@@ -12,8 +12,10 @@ filenames    input meshes (positional or -i)
 -t           backend 0=reference (NumPy oracle) 1=plain (voxtpu's xla:
              FragmentPlan + resolve, and the JFA flood's plain torch
              versions) 2=cuda (the banded voxelizer and the JFA flood
-             on the hand-written kernels; default). 3 (voxtpu's native
-             C++ backend) is refused: the port does not carry it.
+             on the hand-written kernels; default) 3=native (voxtpu's
+             C++/OpenMP backend on the host, `voxtpu_torch/native`;
+             its grids and SDF are put on --device; it fails where the
+             library cannot be built, with no fallback)
 -o           output filename (default out.obj)
 -p           CSG op 0=void 1=union 2=intersection 3=difference
 -e           export phase OBJs into --out-dir
@@ -34,8 +36,10 @@ filenames    input meshes (positional or -i)
 Profiling scopes print ``[Label]: X ms`` lines (``CudaVox(mesh.obj)``,
 ``CudaVox::planning``, ``CudaVox::processing``, ``CudaCSG``,
 ``CudaJFA``, and ``CudaJFA::wide`` inside it where the SDF takes the
-wide flood; ``Plain*`` for -t 1, ``Ref*`` for -t 0). Exports are named
-after the backend (``cuda_``, ``plain_``, ``reference_``).
+wide flood; ``Plain*`` for -t 1, ``Ref*`` for -t 0, ``Native*`` for
+-t 3). CSG runs on voxtpu's routing: -t 0 on the NumPy oracle, -t 3 on
+the native fold, -t 1 and -t 2 as torch word ops. Exports are named
+after the backend (``cuda_``, ``plain_``, ``reference_``, ``native_``).
 """
 
 from __future__ import annotations
@@ -52,13 +56,12 @@ import torch
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
 
 BACKENDS = {0: "reference", 1: "plain", 2: "cuda", 3: "native"}
-PORTED = (0, 1, 2)
-BACKEND_LABEL = {0: "RefVox", 1: "PlainVox", 2: "CudaVox"}
+BACKEND_LABEL = {0: "RefVox", 1: "PlainVox", 2: "CudaVox", 3: "NativeVox"}
 CSG_OPS = {0: "void", 1: "union", 2: "intersection", 3: "difference"}
 
 
 class UsageError(Exception):
-    """A request the CLI refuses (bad flags, unported backend, no device)."""
+    """A request the CLI refuses (bad flags, no device)."""
 
 
 @dataclasses.dataclass
@@ -94,9 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from voxtpu_torch.native import NativeUnavailable
+
     try:
         run(argv)
-    except UsageError as e:
+    except (UsageError, NativeUnavailable) as e:
         print(f"voxtpu_torch: {e}", file=sys.stderr)
         return 1
     return 0
@@ -111,10 +116,6 @@ def run(argv=None) -> PipelineResult:
         raise UsageError("Need [input file]")
     if args.block_size is not None and args.block_size % 16 != 0:
         raise UsageError("Thread per voxel must be a multiple of 16")
-    if args.type not in PORTED:
-        raise UsageError(f"-t {args.type} ({BACKENDS[args.type]}): the port does not "
-                         "carry voxtpu's native C++ backend; use -t 0 (reference), "
-                         "-t 1 (plain) or -t 2 (cuda)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise UsageError("--device cuda: no CUDA device is available "
@@ -193,8 +194,11 @@ def _run_pipeline(args, filenames, device) -> PipelineResult:
 
             if (i > 0 or benchmark) and op != "void":
                 other = grids[i] if not benchmark else bm_grid
+                # voxtpu's routing: the oracle and native backends fold on
+                # the host, the others with torch word ops.
+                csg_backend = backend if backend in ("reference", "native") else "plain"
                 with ProfilingScope(vox_label.replace("Vox", "CSG")) as ps:
-                    grids[0] = csg(grids[0], other, op)
+                    grids[0] = csg(grids[0], other, op, backend=csg_backend)
                     ps.observe(grids[0].words)
 
             if benchmark:
@@ -207,7 +211,8 @@ def _run_pipeline(args, filenames, device) -> PipelineResult:
 
         if args.sdf:
             jfa_label = vox_label.replace("Vox", "JFA")
-            wide = backend != "reference" and seed_encoding(spec.n, backend=backend) == "wide"
+            wide = (backend in ("plain", "cuda")
+                    and seed_encoding(spec.n, backend=backend) == "wide")
             with ProfilingScope(jfa_label) as ps:
                 inner = ProfilingScope(f"{jfa_label}::wide") if wide else nullcontext(ps)
                 with inner as pi:

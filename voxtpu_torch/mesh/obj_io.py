@@ -1,5 +1,14 @@
-"""Wavefront OBJ import/export — port of the NumPy paths of
-`voxtpu/mesh/obj_io.py` (the native C++ parser is not carried over).
+"""Wavefront OBJ import/export — port of `voxtpu/mesh/obj_io.py`.
+
+With ``use_native=True`` (the default, as in voxtpu) both go through the
+C++ library of `voxtpu_torch.native`. The reader keeps voxtpu's
+pure-Python parser as its fallback: where the library cannot be built
+or loaded, or the native parser hands a file off (a non-triangular
+face, junk where an index belongs), the Python parser runs, and the
+parser that ran is logged (info level, `VOXTPU_LOG`). The writer has no
+fallback: ``use_native=True`` raises where the library cannot be built
+or loaded; only a file the library cannot open goes on to the Python
+writer, which raises the error.
 
 - Imports ``v x y z`` with the optional per-vertex RGB color extension
   (``v x y z r g b``), ``vn``, and triangular faces in the ``v``,
@@ -16,6 +25,7 @@ import os
 import numpy as np
 
 from voxtpu_torch.mesh.mesh import Mesh
+from voxtpu_torch.utils.logging import log_info
 
 _CHUNK = 1 << 20  # rows formatted per write
 
@@ -99,12 +109,29 @@ def _parse_faces(f_lines: list[str]) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(vi_rows, np.int64), np.asarray(ni_rows, np.int64)
 
 
-def import_mesh(filename: str | os.PathLike) -> Mesh:
+def import_mesh(filename: str | os.PathLike, use_native: bool = True) -> Mesh:
     """Parse an .obj file into a :class:`Mesh`. Triangular faces only."""
     filename = os.fspath(filename)
     ext = os.path.splitext(filename)[1].lower()
     if ext != ".obj":
         raise ValueError(f"{ext!r} is a wrong file extension. It must be .obj")
+
+    if use_native:
+        from voxtpu_torch.native import NativeUnavailable, native_import_mesh
+
+        try:
+            mesh = native_import_mesh(filename)
+        except NativeUnavailable as e:
+            log_info("import_mesh(%s): native parser unavailable (%s); Python parser",
+                     filename, str(e).splitlines()[0])
+        else:
+            if mesh is not None:
+                log_info("import_mesh(%s): native parser", filename)
+                return mesh
+            log_info("import_mesh(%s): the native parser handed the file off; "
+                     "Python parser", filename)
+    else:
+        log_info("import_mesh(%s): Python parser", filename)
 
     v_lines: list[str] = []
     vn_lines: list[str] = []
@@ -145,10 +172,16 @@ def import_mesh(filename: str | os.PathLike) -> Mesh:
     return mesh
 
 
-def export_mesh(filename: str | os.PathLike, mesh: Mesh) -> None:
+def export_mesh(filename: str | os.PathLike, mesh: Mesh, use_native: bool = True) -> None:
     """Write a Mesh as .obj (colored vertices, normals, ``f v//vn`` faces)."""
     filename = os.fspath(filename)
     os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+
+    if use_native:
+        from voxtpu_torch.native import native_export_mesh
+
+        if native_export_mesh(filename, mesh):
+            return
 
     V = mesh.num_vertices
     F = mesh.num_faces

@@ -22,7 +22,9 @@ kernels on CUDA tensors, their plain torch versions on the CPU; `pipe`
 or `JFA_PIPE=1` selects voxtpu's pipelined step B6; above 1024 the wide
 flood, as `jfa_pallas` hands those sizes to its stepped XLA flood) and
 ``"plain"`` (voxtpu's ``"xla"``: the packed flood through the plain
-versions, or the wide flood, as `encoding` says, on the grid's device).
+versions, or the wide flood, as `encoding` says, on the grid's device)
+and ``"native"`` (voxtpu's C++/OpenMP flood, `voxtpu_torch/native`, on
+the host, its field put on the grid's device).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
 
-BACKENDS = ("reference", "plain", "cuda")
+BACKENDS = ("reference", "plain", "cuda", "native")
 
 _OFFSETS = tuple(
     (dz, dy, dx)
@@ -298,10 +300,10 @@ def jfa(grid: VoxelGrid | torch.Tensor, spec: GridSpec | None = None,
     layout of the ``"plain"`` and ``"cuda"`` floods (`seed_encoding`:
     ``"cuda"`` takes the packed kernels up to N = 1024 and the wide
     flood above, and refuses an encoding it cannot honour); the oracle
-    has no seeds and takes ``"auto"`` only. `pipe` (``"cuda"`` only)
-    takes voxtpu's pipelined flood step B6 where it applies
-    (`ops/jfa_cuda.py`); None reads `JFA_PIPE` there, as voxtpu's
-    `jfa_pallas` does."""
+    and the native flood have no seed choice and take ``"auto"`` only.
+    `pipe` (``"cuda"`` only) takes voxtpu's pipelined flood step B6
+    where it applies (`ops/jfa_cuda.py`); None reads `JFA_PIPE` there,
+    as voxtpu's `jfa_pallas` does."""
     if pipe and backend != "cuda":
         raise ValueError(f"pipe=True needs backend 'cuda', not {backend!r}")
     if isinstance(grid, VoxelGrid):
@@ -311,12 +313,15 @@ def jfa(grid: VoxelGrid | torch.Tensor, spec: GridSpec | None = None,
         occ = grid.bool()
         if spec is None:
             raise ValueError("spec required for dense input")
-    if backend == "reference":
+    if backend in ("reference", "native"):
         if encoding != "auto":
-            raise ValueError(f"backend 'reference' has no seed encoding; got {encoding!r}")
-        from voxtpu_torch.ops.reference import jfa_ref
+            raise ValueError(f"backend {backend!r} has no seed encoding; got {encoding!r}")
+        if backend == "native":
+            from voxtpu_torch.native import native_jfa as host_jfa
+        else:
+            from voxtpu_torch.ops.reference import jfa_ref as host_jfa
 
-        return torch.from_numpy(jfa_ref(occ.cpu().numpy(), spec)).to(occ.device)
+        return torch.from_numpy(host_jfa(occ.cpu().numpy(), spec)).to(occ.device)
     if backend == "cuda":
         from voxtpu_torch.ops.jfa_cuda import jfa_cuda
 

@@ -21,8 +21,12 @@ Backends:
   forces it in voxtpu.
 - ``"cuda"``: the banded slot pipeline (`ops/vox_slots_banded.py`),
   the pipeline voxtpu's benchmark headlines, kernels B1 and B2. The
-  port's CLI ``-t 2`` takes it; all four backends give the same grid
-  bit for bit.
+  port's CLI ``-t 2`` takes it.
+- ``"native"``: voxtpu's C++/OpenMP voxelizer (`voxtpu_torch/native`)
+  on the host, the grid packed on the requested device; the CLI's
+  ``-t 3``.
+
+All five backends give the same grid bit for bit.
 
 Kernels run on CUDA tensors; on the CPU their plain torch versions.
 """
@@ -35,7 +39,7 @@ import torch
 from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
 
-BACKENDS = ("reference", "plain", "word_event", "cuda")
+BACKENDS = ("reference", "plain", "word_event", "cuda", "native")
 
 
 def _triangle_windows(mesh: Mesh, spec: GridSpec):
@@ -270,6 +274,11 @@ def voxelize(mesh: Mesh, spec: GridSpec, backend: str = "cuda", *,
         from voxtpu_torch.ops.reference import voxelize_ref
 
         occ = torch.from_numpy(voxelize_ref(mesh, spec)).to(device)
+        return VoxelGrid.from_dense(occ, spec)
+    if backend == "native":
+        from voxtpu_torch.native import native_voxelize
+
+        occ = torch.from_numpy(native_voxelize(mesh, spec)).to(device)
         return VoxelGrid.from_dense(occ, spec)
     if backend == "plain":
         if plan is None:

@@ -5,7 +5,7 @@ their collectives become these helpers:
 
 | voxtpu | here |
 |---|---|
-| `ppermute` | `permute` (`batch_isend_irecv` within the group) |
+| `ppermute` | `permute` (`batch_isend_irecv` within the group; under NCCL after a collective of the whole group) |
 | `psum_scatter(tiled=True)` | `reduce_scatter` (`reduce_scatter_tensor`) |
 | `psum` | `all_reduce` |
 | `all_gather(tiled=True)` | `all_gather` (`all_gather_into_tensor`) |
@@ -106,11 +106,26 @@ def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     return _from_wire(out, t)
 
 
+def _whole_group(group, t: torch.Tensor) -> None:
+    """A collective that every rank of the group joins, on `t`'s card.
+    NCCL leaves a batch of sends and receives undefined (a hang is
+    typical) when it is the first call on a group and some rank has no
+    operation in it, as the end ranks of a halo exchange have none; a
+    one-element all-reduce first brings the group's communicator up on
+    every rank. Every rank calls `permute` alike (SPMD), so the
+    all-reduce matches across the group at each exchange."""
+    if dist.get_backend(group) == "nccl":
+        dist.all_reduce(torch.zeros(1, device=t.device), group=group)
+
+
 def permute(t: torch.Tensor, group, send_to: int | None,
             recv_from: int | None) -> torch.Tensor | None:
     """One step of voxtpu's ppermute within the group: send `t` to group
     rank `send_to` and receive a tensor of `t`'s shape from `recv_from`
-    (either may be None). Returns what was received, or None."""
+    (either may be None). Every rank of the group calls it, those with
+    neither too. Returns what was received, or None."""
+    if _size(group) > 1:
+        _whole_group(group, t)
     ops, got = [], None
     if send_to is not None:
         ops.append(dist.P2POp(dist.isend, _to_wire(group, t),

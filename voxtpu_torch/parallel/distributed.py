@@ -8,17 +8,21 @@ process of one `torch.distributed` process group:
 - `init_distributed()` calls `dist.init_process_group`, with torchrun's
   environment (``MASTER_ADDR``, ``WORLD_SIZE``, ``RANK``) when given no
   arguments, or an explicit rendezvous address (``tcp://host:port`` or
-  ``file:///path``), world size and rank. The backend is the caller's:
-  ``"nccl"`` for CUDA and ``"gloo"`` for the CPU by default. NCCL refuses
-  two ranks on one card, so ranks that share one card ask for
-  ``"gloo"`` by name (`voxtpu_torch.parallel.collectives` then stages
-  their CUDA tensors through the host, and counts the bytes).
+  ``file:///path``), world size and rank, and optionally the rank's
+  card (voxtpu's ``local_device_ids``). The backend is the caller's:
+  ``"nccl"`` for CUDA and ``"gloo"`` for the CPU by default. Each rank
+  takes its own card (`rank_card`: ``local_device_ids``, ``LOCAL_RANK``
+  or the rank modulo the host's cards). NCCL refuses two ranks on one
+  card, so ranks that share one card ask for ``"gloo"`` by name
+  (`voxtpu_torch.parallel.collectives` then stages their CUDA tensors
+  through the host, and counts the bytes).
 - `global_mesh()` builds a `DeviceMesh` over every rank.
 - `global_from_local()` wraps this rank's block as a `DTensor`, and
   `local_from_global()` returns it with its place in the global array.
   Neither runs a collective (gloo cannot all-gather CUDA tensors).
 
-Usage (2 hosts, one card each)::
+Usage (2 hosts, one card each; on one host of 4 cards, rank r of
+``init_distributed("tcp://localhost:8476", 4, r)`` takes card r)::
 
     # host 0                                        # host 1
     init_distributed("tcp://10.0.0.1:8476", 2, 0)   init_distributed("tcp://10.0.0.1:8476", 2, 1)
@@ -40,9 +44,54 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Shard
 
 
+def _on_this_host(address: str | None) -> bool:
+    """Whether a rendezvous address names this host (a file, localhost
+    or a loopback address)."""
+    if address is None:
+        return False
+    if address.startswith("file://"):
+        return True
+    host = address.split("://", 1)[-1].rsplit(":", 1)[0].strip("[]")
+    return host in ("localhost", "::1") or host.startswith("127.")
+
+
+def rank_card(device_count: int, *, local_device_ids=None, local_rank: int | None = None,
+              process_id: int | None = None, ranks_on_host: int | None = None,
+              backend: str = "nccl") -> int:
+    """The CUDA card a rank takes: ``local_device_ids[0]`` (one card a
+    rank), else ``LOCAL_RANK`` (`local_rank`), else ``process_id %
+    device_count`` where an explicit process id is given, else card 0.
+
+    NCCL refuses two ranks on one card ("Duplicate GPU detected"), so
+    where NCCL would get more ranks on this host (`ranks_on_host`, where
+    known) than it has cards, this raises before any process group
+    starts; ranks that share a card take ``backend="gloo"``."""
+    if device_count < 1:
+        raise ValueError("no CUDA card on this host")
+    if local_device_ids is not None:
+        ids = list(local_device_ids)
+        if len(ids) != 1:
+            raise ValueError(f"local_device_ids={ids}: a rank holds one card")
+        card = int(ids[0])
+    elif local_rank is not None:
+        card = int(local_rank)
+    elif process_id is not None:
+        card = int(process_id) % device_count
+    else:
+        card = 0
+    if not 0 <= card < device_count:
+        raise ValueError(f"card {card} does not exist: this host has {device_count}")
+    if backend == "nccl" and ranks_on_host is not None and ranks_on_host > device_count:
+        raise ValueError(f"NCCL takes one card a rank: {ranks_on_host} ranks on this host "
+                         f"and {device_count} cards (ranks that share a card pass "
+                         "backend='gloo')")
+    return card
+
+
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
+                     local_device_ids=None, *,
                      backend: str | None = None) -> tuple[int, int]:
     """Join (or start) the process group; idempotent: a second call
     returns the group's (rank, world size) and changes nothing.
@@ -52,18 +101,33 @@ def init_distributed(coordinator_address: str | None = None,
     (``tcp://host:port``, ``file:///path``) and `num_processes`,
     `process_id` the world size and this rank. `backend` defaults to
     ``"nccl"`` where CUDA is available and ``"gloo"`` elsewhere. A CUDA
-    rank's current device becomes ``LOCAL_RANK`` (0 without torchrun).
-    Returns ``(rank, world_size)``."""
+    rank's card is `rank_card`'s: `local_device_ids` (voxtpu's fourth
+    argument, one card here), ``LOCAL_RANK``, or `process_id` modulo the
+    host's cards. Returns ``(rank, world_size)``."""
     if not dist.is_initialized():
         if backend is None:
             backend = "nccl" if torch.cuda.is_available() else "gloo"
+        device_id = None
         if torch.cuda.is_available():
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            local_rank = os.environ.get("LOCAL_RANK")
+            if "LOCAL_WORLD_SIZE" in os.environ:
+                on_host = int(os.environ["LOCAL_WORLD_SIZE"])
+            elif _on_this_host(coordinator_address):
+                on_host = num_processes
+            else:
+                on_host = None
+            card = rank_card(torch.cuda.device_count(), local_device_ids=local_device_ids,
+                             local_rank=None if local_rank is None else int(local_rank),
+                             process_id=process_id, ranks_on_host=on_host, backend=backend)
+            torch.cuda.set_device(card)
+            if backend == "nccl":
+                device_id = torch.device("cuda", card)
         if coordinator_address is None:
-            dist.init_process_group(backend)
+            dist.init_process_group(backend, device_id=device_id)
         else:
             dist.init_process_group(backend, init_method=coordinator_address,
-                                    world_size=num_processes, rank=process_id)
+                                    world_size=num_processes, rank=process_id,
+                                    device_id=device_id)
     return dist.get_rank(), dist.get_world_size()
 
 

@@ -64,13 +64,19 @@ def check_jfa_sharded(n: int, dz: int, encoding: str = "auto") -> str:
     return encoding
 
 
+def _halos(arr: torch.Tensor, k: int, group, z: int, dz: int):
+    """(k planes from rank z - 1, k planes from rank z + 1), None past
+    the grid's ends: the send/recv of one halo exchange."""
+    up = z + 1 if z + 1 < dz else None
+    down = z - 1 if z > 0 else None
+    return (C.permute(arr[-k:], group, up, down),    # rank z - 1's top planes
+            C.permute(arr[:k], group, down, up))     # rank z + 1's bottom planes
+
+
 def _halo_exchange(arr: torch.Tensor, k: int, group, z: int, dz: int, fill) -> torch.Tensor:
     """[k planes from rank z - 1, arr, k planes from rank z + 1] along
     dim 0 (the fill past the grid's ends)."""
-    up = z + 1 if z + 1 < dz else None
-    down = z - 1 if z > 0 else None
-    lower = C.permute(arr[-k:], group, up, down)     # rank z - 1's top planes
-    upper = C.permute(arr[:k], group, down, up)      # rank z + 1's bottom planes
+    lower, upper = _halos(arr, k, group, z, dz)
     if lower is None:
         lower = torch.full_like(arr[:k], fill)
     if upper is None:
