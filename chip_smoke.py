@@ -104,6 +104,20 @@ and no result line:
    C++/OpenMP backend on the host, `voxtpu_torch/native`) at 128^3 on
    the small washers: its grid xor popcount 0 against -t 0's, its SDF
    within rtol 1e-6 of the oracle's, both on the card; its wall printed.
+4e. The main path at voxtpu's largest grid (every earlier phase's state
+   freed): phase 4's washer_a at 4096^3 (its own grid fit, band 256, as
+   voxtpu's bench runs it), every grid kept packed (2^31 words, 8 GiB):
+   `BandedSlotVoxPipeline.words()` must give overflow 0 and launch B1
+   and B2 once each (counted from 0 around the call); its grid must have
+   xor popcount 0 against `DeviceVoxPipeline.words()` (B12 launched
+   once, overflow 0) and the same `grid_digest`, and equal the plane
+   oracle (`voxelize_ref_planes`) on 8 z-planes spread over the occupied
+   ones; its occupied count is printed. B1, B2 (in place) and B12 are
+   timed as phase 4b times them (a single call and `device_ms`) beside
+   their bounds, the per-call totals of both pipelines with
+   `utils/timing.py::time_device_fn`, with the plan builds (s) and the
+   peak device memory (`large_grid`, which `tools/check_large_grids.py`
+   also runs).
 5. Training kernels against their plain torch versions at n=128 on a
    jittered icosphere(4), soft plan with pad 2: B7 (fused forward)
    occupancy within 1e-4; B8 (fused backward) table cotangents for a
@@ -228,6 +242,10 @@ WQ_BIG_N = 2048         # phase 4b's B14 grid on washer_a alone
 PROBE_N, PROBE_KS = 512, (4, 128)  # phase 4c's flood-step probe
 PROBE_ROW = "hoistv"    # the probe variant whose time the kernels line carries
 WIDE_N = 1280           # phase 4d: the CLI's SDF on the wide (hi, lo) flood
+LARGE_N = 4096          # phase 4e: voxtpu's largest banded grid (bench.py:503-552)
+ORACLE_PLANES = 8       # phase 4e: z-planes held against the plane oracle
+PLANE_CHUNK = 64        # planes a chunk of the per-plane popcount
+MAX_ARBITRATED = 32     # planes where a witness differs that the plane oracle decides
 TRACE_N = 128           # phase 4d: the CLI with --trace
 SHARDED_STEPS = 3       # phase 6b: each kernel engine's steps in the world of 2
 
@@ -1332,24 +1350,23 @@ def sharded_jfa_part(world, rank, dev, inputs, out, directory, slabs) -> None:
             line = (f"jfa_sharded {encoding} at {n}^3 on {shape}: {wall:.3f} s wall, staged "
                     f"{staged / 1e6:.1f} MB, peak {peak:.2f} GiB")
             if shape == (1, world):
-                fills = SJ._FILLS[encoding]
-                sel_fn, out_fn = SJ._metrics(spec, slab, z, encoding, dev)
+                flood = SJ.SlabFlood(spec, dmesh, "z", encoding, dev, SJ.WIDE_BUDGET)
                 steps = []
                 barrier(world)
                 t0 = time.perf_counter()
-                state = SJ._init_local(occ, n, slab, group, z, dz, encoding)
+                state = flood.init(occ)
                 barrier(world)
                 res["init"] = time.perf_counter() - t0
-                for k, step in SJ.flood_steps(spec, dz):
+                for k in flood.strides():
                     sent = SJ.comm_bytes_per_step(n, dz, encoding, k) if dz > 1 else 0
-                    moved = exchange_s(state, fills, k, slab, group, z, dz) if sent else 0.0
+                    moved = (exchange_s(state, flood.fills, k, slab, group, z, dz)
+                             if sent else 0.0)
                     barrier(world)
                     t0 = time.perf_counter()
-                    state = step(state, fills, sel_fn, k, slab, group, z, dz)
+                    state = flood.step(state, k)
                     barrier(world)
                     steps.append((k, time.perf_counter() - t0, sent, moved))
-                one = torch.ones((), dtype=torch.float32, device=dev)
-                replay = torch.where(occ, one, -one) * out_fn(state)
+                replay = flood.output(state, occ)
                 require(bitwise_equal(replay, sdf), f"jfa_sharded {encoding}: the replayed "
                         "flood differs from the call")
                 res["steps"] = steps
@@ -1917,7 +1934,8 @@ def fill_calls(pipe, spec, banded, wide):
     them, on the slots (banded, wide), their plain versions, and the
     bytes each must move. "B2" is the pipeline's form, in place into a
     scratch grid (`wide_fill_into`); "B2 compact" the compact buffer
-    alone. Each takes its plan's layout."""
+    alone. Each takes its plan's layout. Without wide slots (`wide` None)
+    there are B1's alone, and no scratch grid (None)."""
     import torch
 
     from voxtpu_torch.ops import vox_cuda
@@ -1926,6 +1944,14 @@ def fill_calls(pipe, spec, banded, wide):
     st, n, tc = pipe.state, spec.n, pipe.tc
     lk, xs = banded
     kw = dict(n=n, tc=tc, band=pipe.band)
+    calls = {
+        "B1": lambda: V.banded_fill(lk, xs, st.batch_tile, st.batch_basew, **kw,
+                                    layout=st.layout),
+        "B1 plain": lambda: V.banded_fill_plain(lk, xs, st.batch_tile, st.batch_basew, **kw),
+    }
+    moved = {"B1": nbytes(lk, xs, st.batch_tile, st.batch_basew) + n ** 3 // 8}
+    if wide is None:
+        return calls, moved, None
     w_ctile, w_uidx = st.wide[3], st.wide[4]
     k, nw = w_uidx.shape[0], n // 32
     grid = torch.zeros((n, n, nw), dtype=torch.int32, device=lk.device)
@@ -1935,28 +1961,27 @@ def fill_calls(pipe, spec, banded, wide):
         rows[w_uidx.long()] ^= vox_cuda.wide_fill_plain(*wide, w_ctile, n=n, tc=tc,
                                                         num_tiles=k)
 
-    calls = {
-        "B1": lambda: V.banded_fill(lk, xs, st.batch_tile, st.batch_basew, **kw,
-                                    layout=st.layout),
-        "B1 plain": lambda: V.banded_fill_plain(lk, xs, st.batch_tile, st.batch_basew, **kw),
+    calls.update({
         "B2": lambda: vox_cuda.wide_fill_into(grid, *wide, w_ctile, w_uidx, n=n, tc=tc,
                                               layout=st.wide_layout),
         "B2 compact": lambda: vox_cuda.wide_fill(*wide, w_ctile, n=n, tc=tc, num_tiles=k,
                                                  layout=st.wide_layout),
         "B2 plain": plain_merge,
-    }
+    })
     slot_bytes = nbytes(*wide, w_ctile)
-    moved = {"B1": nbytes(lk, xs, st.batch_tile, st.batch_basew) + n ** 3 // 8,
-             "B2": slot_bytes + nbytes(w_uidx) + 2 * k * tc * n // 8,
-             "B2 compact": slot_bytes + k * tc * n // 8}
+    moved.update({"B2": slot_bytes + nbytes(w_uidx) + 2 * k * tc * n // 8,
+                  "B2 compact": slot_bytes + k * tc * n // 8})
     return calls, moved, grid
 
 
 def time_fills(calls, moved, what: str) -> dict:
     """Single-call and run times of B1, B2 (the pipeline's form) and B2's
-    compact form, each beside its bound; printed and returned by name."""
+    compact form (where `calls` has them), each beside its bound; printed
+    and returned by name."""
     out = {}
     for name in ("B1", "B2", "B2 compact"):
+        if name not in calls:
+            continue
         single, run_ms = cuda_ms(calls[name]), device_ms(calls[name])
         b = bound(moved[name])
         out[name] = (single, run_ms, b)
@@ -2176,10 +2201,11 @@ def probe_main_path(org, seeds) -> None:
 
 
 def xor_popcount(a, b) -> int:
-    """Set bits of a ^ b over two int32 word tensors."""
-    from voxtpu_torch.grids.voxel_grid import popcount32
+    """Set bits of a ^ b over two int32 word tensors (in chunks: a 4096^3
+    grid is 2^31 words)."""
+    from voxtpu_torch.grids.voxel_grid import xor_popcount as packed_xor_popcount
 
-    return int(popcount32(a ^ b).sum())
+    return packed_xor_popcount(a, b)
 
 
 def we_args(plan):
@@ -2498,6 +2524,188 @@ def jfa_rows(dev, errs, timings, bounds, words, spec):
           f"{bounds['B4'][0]:.4f} ms ({bounds['B4'][1]}); SDF bitwise equal to the B3 "
           f"chain, {int(occ.sum()):,} voxels, finite share {finite}")
     return launches["B4"]
+
+
+def plane_counts(words) -> "np.ndarray":
+    """Set voxels of each z-plane of a packed grid, PLANE_CHUNK planes at
+    a time (no whole-grid temporary)."""
+    import numpy as np
+
+    from voxtpu_torch.grids.voxel_grid import popcount32
+
+    n = words.shape[0]
+    counts = [popcount32(words[z0:z0 + PLANE_CHUNK]).sum(dim=(1, 2)).cpu()
+              for z0 in range(0, n, PLANE_CHUNK)]
+    return np.concatenate([c.numpy() for c in counts])
+
+
+def oracle_planes(counts, k: int):
+    """`k` z-planes spread evenly over the occupied ones (those with a
+    set voxel), ascending."""
+    import numpy as np
+
+    occupied = np.nonzero(counts)[0]
+    require(occupied.size > 0, "the grid is empty")
+    pick = np.unique(np.round(np.linspace(0, occupied.size - 1, k)).astype(np.int64))
+    return occupied[pick]
+
+
+def held_on_planes(words, mesh, spec, planes) -> int:
+    """Voxels where the packed grid's planes differ from the plane oracle
+    (`voxelize_ref_planes`) on them."""
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import pack_bits
+    from voxtpu_torch.ops.reference import voxelize_ref_planes
+
+    want = pack_bits(torch.from_numpy(voxelize_ref_planes(mesh, spec, planes)))
+    got = words[torch.as_tensor(planes, device=words.device)].cpu()
+    return xor_popcount(got, want)
+
+
+def large_grid(dev, mesh, spec, *, band: int | None = None, planes: int = ORACLE_PLANES,
+               witness=None) -> dict:
+    """Phase 4e's checks of one mesh at spec.n (LARGE_N in the smoke;
+    also `tools/check_large_grids.py`'s), every grid kept packed:
+
+    - `BandedSlotVoxPipeline.words()` (B1, then B2 in place; at `band`,
+      the pipeline's default BAND where None): overflow 0,
+      B1 and B2 launched (counted from 0 around the call), a nonzero
+      occupied count;
+    - `DeviceVoxPipeline.words()` (B12): overflow 0, B12 launched, xor
+      popcount 0 against the banded grid and the same `grid_digest`;
+    - the banded grid equal to `voxelize_ref_planes` on `planes` z-planes
+      spread over the occupied ones (0 skips it), and, where `witness`
+      is given (a function of (mesh, spec) giving packed words), against
+      its grid: xor popcount 0, or differences on at most MAX_ARBITRATED
+      planes, on each of which the banded grid equals the plane oracle;
+    - B1, B2 (in place, and into its compact buffer) and B12 timed as a
+      single call and a launch in a run (`cuda_ms`, `device_ms`) beside
+      their bounds, and the per-call totals of the banded and word-event
+      pipelines (`utils/timing.py::time_device_fn`).
+
+    Prints the plan builds, candidates, slots, wide candidates and the
+    peak device memory; returns the numbers by name."""
+    import numpy as np
+    import torch
+
+    from voxtpu_torch.grids.voxel_grid import grid_digest, packed_popcount
+    from voxtpu_torch.ops import vox_cuda, vox_slots_banded
+    from voxtpu_torch.ops import vox_word_event as W
+    from voxtpu_torch.ops.vox import fragments_from_plan
+    from voxtpu_torch.utils.timing import time_device_fn
+
+    B1, B2, B12 = vox_slots_banded.banded_fill, vox_cuda.wide_fill, W.word_event_fill
+    n, out = spec.n, {}
+    band = vox_slots_banded.BAND if band is None else band
+    what = f"{mesh.name} ({mesh.num_faces:,} faces) at {n}^3, band {min(band, n)}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    banded = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, dev, band=band)
+    torch.cuda.synchronize()
+    out["banded_build_s"] = time.perf_counter() - t0
+    B1.launches = B2.launches = 0
+    words, overflow = banded.words()
+    torch.cuda.synchronize()
+    out["launches"] = {"B1": B1.launches, "B2": B2.launches}
+    require(int(overflow) == 0, f"{what}: banded overflow {int(overflow)}")
+    require(B1.launches == 1, f"{what}: the banded pipeline launched B1 {B1.launches} times")
+    require(B2.launches == (1 if banded.num_wide else 0),
+            f"{what}: the banded pipeline launched B2 {B2.launches} times "
+            f"({banded.num_wide:,} wide candidates)")
+    live_wide = 0
+    if banded.num_wide:
+        _, (w_k, _) = pipeline_inputs(banded, spec)
+        live_wide = int((w_k >= 0).sum())
+        del w_k
+    counts = plane_counts(words)
+    occupied = int(counts.sum())
+    require(occupied == packed_popcount(words) and occupied > 0,
+            f"{what}: occupied count {occupied}")
+    out.update(occupied=occupied, candidates=banded.num_candidates, slots=banded.num_slots,
+               batches=banded.num_batches, num_wide=banded.num_wide, live_wide=live_wide)
+    print(f"{what}: banded plan {out['banded_build_s']:.2f} s, {banded.num_candidates:,} "
+          f"candidates in {banded.num_slots:,} slots ({banded.num_batches:,} batches), "
+          f"{banded.num_wide:,} wide candidates ({live_wide:,} live wide slots); overflow 0, "
+          f"launches {out['launches']}; {occupied:,} voxels set", flush=True)
+
+    if planes:
+        z = oracle_planes(counts, planes)
+        t0 = time.perf_counter()
+        x = held_on_planes(words, mesh, spec, z)
+        require(x == 0, f"{what}: the banded grid differs from the plane oracle on planes "
+                f"{z.tolist()} (xor popcount {x})")
+        out["oracle_planes"] = z.tolist()
+        print(f"{what}: equal to the plane oracle on {len(z)} z-planes {z.tolist()} "
+              f"({int(counts[z].sum()):,} voxels; {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    if witness is not None:
+        t0 = time.perf_counter()
+        other = witness(mesh, spec).to(dev)
+        x = xor_popcount(words, other)
+        line = f"{what}: xor popcount {x} against the native library's grid"
+        if x:
+            # voxtpu's native build (g++ -O3 -march=native) contracts
+            # multiply-adds into FMAs, so it can move an x entry by a
+            # voxel where the oracle does not; the oracle decides.
+            z = np.nonzero(plane_counts(words ^ other))[0]
+            require(len(z) <= MAX_ARBITRATED, f"{what}: the native grid differs on {len(z)} "
+                    f"planes (more than {MAX_ARBITRATED} to hold against the oracle)")
+            o = held_on_planes(words, mesh, spec, z)
+            require(o == 0, f"{what}: the banded grid differs from the plane oracle on the "
+                    f"planes {z.tolist()} where the native grid differs (xor popcount {o})")
+            line += (f", all on the planes {z.tolist()}, where the banded grid equals the "
+                     "plane oracle (the native build contracts multiply-adds)")
+        del other
+        print(f"{line} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    pipe = W.DeviceVoxPipeline(mesh, spec, dev)
+    torch.cuda.synchronize()
+    out["pipe_build_s"] = time.perf_counter() - t0
+    B12.launches = 0
+    we_words, we_overflow = pipe.words()
+    torch.cuda.synchronize()
+    out["launches"]["B12"] = B12.launches
+    require(int(we_overflow) == 0, f"{what}: DeviceVoxPipeline overflow {int(we_overflow)}")
+    require(B12.launches == 1, f"{what}: DeviceVoxPipeline launched B12 {B12.launches} times")
+    x = xor_popcount(words, we_words)
+    require(x == 0, f"{what}: the banded grid differs from the word-event grid (xor popcount "
+            f"{x})")
+    digest = grid_digest(words)
+    require(digest == grid_digest(we_words), f"{what}: the grids' digests differ")
+    del we_words
+    print(f"{what}: DeviceVoxPipeline {out['pipe_build_s']:.2f} s ({pipe.num_fragments:,} "
+          f"candidates, {pipe.num_valid:,} fragments, {pipe.num_events:,} events, b_max "
+          f"{pipe.b_max:,}, cap_f {pipe.cap_f:,}); xor 0 against the banded grid, digest "
+          f"{digest} on both", flush=True)
+
+    del words
+    with uncounted(B1, B2, B12):
+        calls, moved, _ = fill_calls(banded, spec, *pipeline_inputs(banded, spec))
+        out.update(time_fills(calls, moved, what))
+        del calls
+        plan = W.WordEventVoxPlan(mesh, spec, dev, fragments=fragments_from_plan(
+            pipe.frag_plan))
+        args = we_args(plan)
+        b12 = (cuda_ms(lambda: B12(*args, n=n, tc=plan.tc)),
+               device_ms(lambda: B12(*args, n=n, tc=plan.tc)),
+               bound(nbytes(*args) + n ** 3 // 8))
+        out["B12"] = b12
+        print(f"{what} B12: {b12[0]:.4f} ms a single call, {b12[1]:.4f} ms a launch in a "
+              f"run, bound {b12[2][0]:.4f} ms ({b12[2][1]})", flush=True)
+        del plan, args
+        torch.cuda.empty_cache()
+        out["banded_ms"] = 1e3 * time_device_fn(banded.words, iters=3, repeats=3)
+        out["pipe_ms"] = 1e3 * time_device_fn(pipe.words, iters=3, repeats=3)
+    print(f"{what}: per call (time_device_fn): banded words() {out['banded_ms']:.3f} ms, "
+          f"DeviceVoxPipeline.words() {out['pipe_ms']:.3f} ms", flush=True)
+    del banded, pipe
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{what}: peak device memory {out['peak_gib']:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _load_tool(name: str):
@@ -3095,6 +3303,14 @@ def run() -> int:
         wide_cli(dev, paths)
     torch.cuda.empty_cache()
     print(f"phase 4d: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 4e. the main path at voxtpu's largest grid ----------------------------------
+    phase(f"4e. the banded pipeline at {LARGE_N}^3 on washer_a against the word-event "
+          "route and the plane oracle")
+    t_phase = time.perf_counter()
+    large = large_grid(dev, mesh_of(c, f, "washer_a"), GridSpec.fit(c, LARGE_N))
+    require(large["launches"]["B2"] == 1, f"B2 did not launch at {LARGE_N}^3")
+    print(f"phase 4e: {time.perf_counter() - t_phase:.1f} s ({card})")
 
     # ---- 5. training kernels vs plain ------------------------------------------
     phase(f"5. training kernels against their plain versions (n={KERNEL_N})")

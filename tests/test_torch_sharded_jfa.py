@@ -5,8 +5,11 @@ on dyadic geometry (origin (0.5, 0, -1), voxel 1/32: every distance is
 exact, so XLA:CPU's contracted multiply-adds round nothing; ROADMAP C)
 and bitwise the port's single-device flood on a non-dyadic grid too;
 `comm_bytes_per_step` over a table; the refusals, which need no
-process group. The port's ranks run as gloo worlds of 2 and 4 CPU
-processes (`tests/torch_parallel_worker.py`)."""
+process group. The wide encoding also runs with byte budgets that force
+z-chunks of one and of three planes (`BUDGETS`), over strides below, at
+and above the slab ((1, 2): slab 16, k <= 16; (1, 4) and (2, 2): slab
+8, k up to 16), held the same way. The port's ranks run as gloo worlds
+of 2 and 4 CPU processes (`tests/torch_parallel_worker.py`)."""
 
 import numpy as np
 import pytest
@@ -23,6 +26,9 @@ DYADIC = (N, (0.5, 0.0, -1.0), 1.0 / N)
 ODD = (N, (0.1, -0.23, 0.37), 0.0313)
 SHAPES = {2: ((1, 2),), 4: ((1, 4), (2, 2))}
 ENCODINGS = ("packed", "wide")
+# Chunk temporaries of a z-plane of the wide step: one plane, three planes.
+PLANE = 16 * N * N
+BUDGETS = {"one_plane": PLANE, "three_planes": 3 * PLANE}
 
 
 def ball():
@@ -41,7 +47,7 @@ GRIDS = {"ball": (ball(), DYADIC), "scattered": (scattered(), DYADIC),
 
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
-    worlds = {size: World("jfa", size, {"shapes": shapes, "grids": GRIDS},
+    worlds = {size: World("jfa", size, {"shapes": shapes, "grids": GRIDS, "budgets": BUDGETS},
                           tmp_path_factory.mktemp(f"jfa{size}"))
               for size, shapes in SHAPES.items()}
     return {size: w.results() for size, w in worlds.items()}
@@ -85,6 +91,62 @@ def test_sharded_field_is_single_device_and_voxtpus(port, grid, shape, encoding)
     if spec == DYADIC:
         want = voxtpu_sharded(occ, shape, encoding)
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+CHUNKED = [(g, shape, b) for g in GRIDS for size in SHAPES for shape in SHAPES[size]
+           for b in BUDGETS]
+
+
+@pytest.mark.parametrize("grid, shape, budget", CHUNKED)
+def test_chunked_wide_field_is_single_device_and_voxtpus(port, grid, shape, budget):
+    """The wide step in z-chunks of one and three planes gives the same
+    field, bitwise, as the single-device flood (and voxtpu's sharded
+    flood on the dyadic grids)."""
+    occ, spec = GRIDS[grid]
+    got = assembled(port[shape[0] * shape[1]], (grid, shape, "wide", budget), shape)
+    single = jfa(torch.from_numpy(occ), GridSpec(*spec), backend="plain",
+                 encoding="wide").numpy()
+    np.testing.assert_array_equal(got.view(np.int32), single.view(np.int32))
+    if spec == DYADIC:
+        want = voxtpu_sharded(occ, shape, "wide")
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("budget, dz, planes", [
+    (BUDGETS["one_plane"], 2, 1), (BUDGETS["three_planes"], 4, 3),
+    (BUDGETS["one_plane"] - 1, 2, 1), (1 << 40, 4, N // 4)])
+def test_wide_chunk_planes(budget, dz, planes):
+    """The budgets above give the chunks they are named for; a chunk is
+    at least one plane and at most the slab."""
+    assert SJ._wide_chunk(N, N // dz, budget) == planes
+
+
+def _cards_tool():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "check_sharded_cards.py"
+    spec = importlib.util.spec_from_file_location("check_sharded_cards", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_wide_reckoning_of_the_cards_tool():
+    """tools/check_sharded_cards.py reckons a rank's peak from the step's
+    own per-voxel bytes, plus a chunk budget and headroom: 2048^3 on
+    (1, 4) at 29 bytes a slab voxel is 58 GiB + 2 + 4, within the 75.4
+    GiB an H100 rank had free under NCCL; the step's old 58 bytes a voxel
+    did not fit."""
+    tool = _cards_tool()
+    assert tool.STEP_BYTES == SJ.WIDE_SLAB_BYTES == 29
+    peak = tool.sharded_wide_peak(2048, 4)
+    assert peak == 29 * 2048 ** 3 // 4 + tool.WIDE_BUDGET + tool.HEADROOM
+    assert peak / 2 ** 30 == 64.0
+    free = int(75.4 * 2 ** 30)
+    assert peak <= free < tool.sharded_wide_peak(2048, 4, per_voxel=58)
+    assert tool.largest_wide_n(free, 4, 29) == 2048
+    assert tool.largest_wide_n(free, 4, 58) < 2048
 
 
 COMM = [(n, dz, e, k, gathered) for n in (64, 2048) for dz in (2, 8) for e in ENCODINGS

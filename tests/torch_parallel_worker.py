@@ -147,6 +147,9 @@ def job_jfa(rank, world, directory, cases):
             for encoding in ("packed", "wide"):
                 out[key, tuple(shape), encoding] = jfa_sharded(
                     slab, GridSpec(*spec), mesh, encoding=encoding).numpy()
+            for name, budget in cases.get("budgets", {}).items():
+                out[key, tuple(shape), "wide", name] = jfa_sharded(
+                    slab, GridSpec(*spec), mesh, encoding="wide", budget=budget).numpy()
     return out
 
 

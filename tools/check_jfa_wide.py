@@ -104,42 +104,69 @@ def _world(idx: torch.Tensor, org: torch.Tensor) -> torch.Tensor:
     return org[:3] + f * org[3]
 
 
-def check_wide_field(sdf: torch.Tensor, occ: torch.Tensor, spec: GridSpec, *,
-                     samples: int = SAMPLES, seed: int = 0) -> dict:
-    """Checks of a JFA field against its grid (see the module docstring).
-    Returns the counts; raises CheckFailed naming the first failure."""
-    n, dev = spec.n, sdf.device
-    boundary = W._boundary_mask(occ)
+def sign_zero_counts(sdf: torch.Tensor, occ: torch.Tensor, boundary: torch.Tensor):
+    """(voxels whose sign does not follow occ, voxels where sdf == 0 and
+    the boundary mask differ), over planes of a grid or a slab, SLAB
+    planes at a time."""
     bad_sign = zero_off = 0
-    for z0 in range(0, n, SLAB):
+    for z0 in range(0, sdf.shape[0], SLAB):
         s, o, b = sdf[z0:z0 + SLAB], occ[z0:z0 + SLAB], boundary[z0:z0 + SLAB]
         bad_sign += int(((s < 0) & o).sum()) + int(((s >= 0) & ~o).sum())
         zero_off += int(((s == 0) != b).sum())
-    seeds = torch.nonzero(boundary)
-    del boundary
-    org = jfa_cuda.org_tensor(spec, dev)
-    sw = _world(seeds, org)
+    return bad_sign, zero_off
+
+
+def sample_voxels(n: int, samples: int, seed: int) -> torch.Tensor:
+    """The (samples, 3) zyx voxels the brute force checks, seeded (on the
+    host, so every rank of a sharded check draws the same)."""
     g = torch.Generator().manual_seed(seed)
-    pick = torch.randint(0, n, (samples, 3), generator=g).to(dev)
-    pw = _world(pick, org)
-    brute = torch.full((samples,), float("inf"), device=dev)
-    for i in range(0, seeds.shape[0], SEED_CHUNK):
+    return torch.randint(0, n, (samples, 3), generator=g)
+
+
+def brute_min(pick: torch.Tensor, seeds: torch.Tensor, org: torch.Tensor) -> torch.Tensor:
+    """Per sample voxel (zyx, (m, 3)), the least squared world distance to
+    `seeds` (zyx, (s, 3)): the JFA's float formula, SEED_CHUNK seeds at a
+    time; +inf without a seed."""
+    pw, sw = _world(pick, org), _world(seeds, org)
+    brute = torch.full((pick.shape[0],), float("inf"), device=org.device)
+    for i in range(0, sw.shape[0], SEED_CHUNK):
         part = sw[i:i + SEED_CHUNK]
         dx = pw[:, None, 0] - part[None, :, 0]
         dy = pw[:, None, 1] - part[None, :, 1]
         dz = pw[:, None, 2] - part[None, :, 2]
         brute = torch.minimum(brute, (dx * dx + dy * dy + dz * dz).min(dim=1).values)
         del dx, dy, dz
-    got = sdf[pick[:, 0], pick[:, 1], pick[:, 2]].abs()
+    return brute
+
+
+def judge(seeds: int, bad_sign: int, zero_off: int, got: torch.Tensor,
+          brute: torch.Tensor) -> dict:
+    """The checks' verdict from their counts and the samples' |sdf| (`got`)
+    beside the brute force; raises CheckFailed naming the first failure."""
     below = int((got < brute).sum())
     above = float((got > brute * (1 + RTOL)).float().mean())
-    out = dict(seeds=seeds.shape[0], bad_sign=bad_sign, zero_off=zero_off, below=below,
+    out = dict(seeds=seeds, bad_sign=bad_sign, zero_off=zero_off, below=below,
                above_share=above, finite_share=float(torch.isfinite(got).float().mean()))
     require(bad_sign == 0, f"{bad_sign} voxels with the wrong sign")
     require(zero_off == 0, f"sdf == 0 differs from the boundary mask at {zero_off} voxels")
     require(below == 0, f"{below} samples below the brute-force nearest seed")
     require(above < ABOVE_MAX, f"{above:.4f} of the samples above brute force by > {RTOL}")
     return out
+
+
+def check_wide_field(sdf: torch.Tensor, occ: torch.Tensor, spec: GridSpec, *,
+                     samples: int = SAMPLES, seed: int = 0) -> dict:
+    """Checks of a JFA field against its grid (see the module docstring).
+    Returns the counts; raises CheckFailed naming the first failure."""
+    n, dev = spec.n, sdf.device
+    boundary = W._boundary_mask(occ)
+    bad_sign, zero_off = sign_zero_counts(sdf, occ, boundary)
+    seeds = torch.nonzero(boundary)
+    del boundary
+    pick = sample_voxels(n, samples, seed).to(dev)
+    brute = brute_min(pick, seeds, jfa_cuda.org_tensor(spec, dev))
+    got = sdf[pick[:, 0], pick[:, 1], pick[:, 2]].abs()
+    return judge(seeds.shape[0], bad_sign, zero_off, got, brute)
 
 
 def _launches() -> dict:

@@ -24,14 +24,21 @@ picks (the rank modulo the host's cards; nothing passes a card).
    on every rank, every counted kernel launched on every rank.
 2. voxtpu's `dryrun_multichip(4)` (`python -m voxtpu_torch.parallel.
    dryrun 4`): its line.
-3. The SDF no single card holds: on (1, 4) (`--wide-ranks`)
-   `voxelize_sharded` of the two
-   washers and `jfa_sharded(encoding="wide")` of their union at the
-   largest N (a multiple of 32, at most 2048) whose reckoned peak a
-   rank (`sharded_wide_peak`, checked first against the peak measured
-   at 512^3) fits every rank's free memory; the field is gathered on
-   rank 0 and must pass `tools/check_jfa_wide.py::check_wide_field`
-   (signs, zero set, 1024 samples against brute force).
+3. The SDF no single card holds, on (1, 4) (`--wide-ranks`): the two
+   washers' union through `voxelize_sharded` (ring) and
+   `jfa_sharded(encoding="wide")`. First at CALIBRATE_N, where the peak
+   a rank is measured against the reckoning (`step_peak`); then at
+   CHECK_N = 1024, where the field, gathered on rank 0, must be bitwise
+   the single-card `jfa_wide` of the gathered grid; then at `--wide-n`
+   (2048 by default): a rank's reckoned peak (`sharded_wide_peak`, at
+   the larger of STEP_BYTES and the calibration's bytes a slab voxel)
+   must fit every rank's free memory, or the run fails and prints the
+   largest N that would have fitted. The field is checked in place, a
+   slab a rank (`check_slab`: `tools/check_jfa_wide.py`'s checks: signs,
+   the zero set against the boundary mask, whose planes across a slab's
+   faces come from its neighbours, and 1024 samples against the brute
+   force over every rank's boundary seeds, the least distance
+   all-reduced).
 
 Prints every card's name and power limit first, and a summary last:
 fit-step walls per engine and world, the JFA's time a step with the
@@ -57,16 +64,18 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from voxtpu_torch.ops.jfa import _WIDE_TEMP_BYTES, WIDE_BUDGET  # noqa: E402
+from voxtpu_torch.parallel.sharded_jfa import _wide_chunk  # noqa: E402
+
 WIDE_RANKS = 4
 CALIBRATE_N = 512
-MAX_WIDE_N = 2048
-# A slab voxel's peak bytes in one wide step of `sharded_jfa._step_local`
-# (k = slab / 2, the widest halos), from the code: occ 1; the state
-# (hi, lo) 8; the halo-extended copies 16; the best distance 4; a
-# candidate pair 8; its distance 4 (with `_seed_d2i_wide`'s int32
-# temporary and mask, 5 more, gone before the compare); the better mask
-# 1; the new state 8 while the old one lives. 50 a voxel.
-STEP_BYTES = 50
+CHECK_N = 1024   # the sharded wide field against the single-card jfa_wide
+WIDE_N = 2048
+# A slab voxel's bytes at a wide step's peak (`sharded_jfa._wide_step`),
+# beside its chunk's temporaries: occ 1; the (hi, lo) pair 8; the new
+# pair 8; the received halos (k <= slab / 2) or the one fetched slab 8;
+# the running best distance 4. `sharded_jfa.WIDE_SLAB_BYTES`.
+STEP_BYTES = 29
 HEADROOM = 4 << 30  # the CUDA context, NCCL's buffers, the allocator's rounding
 
 
@@ -80,25 +89,35 @@ def _load(name: str, path: str):
 smoke = _load("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
 
 
+def step_peak(n: int, dz: int, per_voxel: float = STEP_BYTES) -> float:
+    """Reckoned peak bytes a rank of a wide step at N^3 over a z axis of
+    `dz` ranks holds beyond the CUDA context: `per_voxel` a slab voxel
+    and a chunk's temporaries (`_WIDE_TEMP_BYTES` a voxel of a chunk of
+    `sharded_jfa._wide_chunk` planes at the default budget)."""
+    slab = n // dz
+    return per_voxel * slab * n * n + _WIDE_TEMP_BYTES * _wide_chunk(n, slab, WIDE_BUDGET) * n * n
+
+
 def sharded_wide_peak(n: int, dz: int, per_voxel: float = STEP_BYTES) -> float:
-    """Reckoned peak bytes a rank of the wide sharded flood at N^3 over
-    a z axis of `dz` ranks."""
-    return per_voxel * n ** 3 / dz + HEADROOM
+    """`step_peak` and the headroom: what a rank must have free."""
+    return step_peak(n, dz, per_voxel) + HEADROOM
 
 
 def largest_wide_n(free: int, dz: int, per_voxel: float) -> int:
-    """The largest multiple of 32 (and of `dz`), at most MAX_WIDE_N,
-    whose reckoned peak fits `free` bytes."""
-    n = 32 * dz
-    while n + 32 <= MAX_WIDE_N and sharded_wide_peak(n + 32, dz, per_voxel) <= free:
+    """The largest multiple of 32 and of `dz`, at most WIDE_N, whose
+    reckoned peak fits `free` bytes (0 if none does)."""
+    best, n = 0, 32
+    while n <= WIDE_N:
+        if n % dz == 0 and sharded_wide_peak(n, dz, per_voxel) <= free:
+            best = n
         n += 32
-    return n - n % dz
+    return best
 
 
 def _wide_flood(rank, dz, dmesh, meshes, n):
     """This rank's occupancy slab of the two washers' union at n
     (voxelize_sharded, ring) and its wide field slab; (occ, sdf, spec,
-    flood wall s, peak bytes of the flood)."""
+    flood wall s, peak bytes of the flood beyond occ)."""
     import numpy as np
 
     from voxtpu_torch.grids.voxel_grid import GridSpec, unpack_bits
@@ -125,16 +144,61 @@ def _wide_flood(rank, dz, dmesh, meshes, n):
     peak = torch.cuda.max_memory_allocated() - base
     smoke.world_log(rank, dz, f"{n}^3: voxelize_sharded (two washers) {vox_s:.2f} s; "
                     f"jfa_sharded wide {wall:.2f} s, peak {peak / 2**30:.3f} GiB beyond occ "
-                    f"({peak / (n ** 3 / dz):.2f} bytes a slab voxel; reckoned "
-                    f"{sharded_wide_peak(n, dz) / 2**30:.3f} GiB with the headroom)")
+                    f"(reckoned {step_peak(n, dz) / 2**30:.3f} GiB: {STEP_BYTES} bytes a slab "
+                    "voxel and a chunk)")
     return occ, sdf, spec, wall, peak
 
 
-def wide_rank(rank: int, dz: int, n_req: int, directory: str) -> int:
-    """A rank of part 3: calibrate at CALIBRATE_N, pick N, flood, gather
-    the field on rank 0, which checks it."""
+def check_slab(checker, sdf, occ, spec, group, z: int, dz: int, *, samples: int = 1024,
+               seed: int = 0) -> dict:
+    """`tools/check_jfa_wide.py`'s checks of a wide field, each rank on
+    its own Z slab: the boundary mask from the slab and its neighbours'
+    facing planes (empty past the grid), signs and the zero set counted
+    on the slab, the samples' |sdf| taken by the rank whose slab holds
+    them, and the brute force's least distance over every rank's seeds
+    (each rank's own minimum, all-reduced). Every rank gets the verdict;
+    raises the checker's failure."""
     import torch.distributed as dist
 
+    from voxtpu_torch.ops.jfa import _boundary_mask
+    from voxtpu_torch.ops.jfa_cuda import org_tensor
+    from voxtpu_torch.parallel import collectives as C
+    from voxtpu_torch.parallel.sharded_jfa import _halos
+
+    n, slab, dev = spec.n, occ.shape[0], occ.device
+    below, above = _halos(occ.to(torch.uint8), 1, group, z, dz)
+    empty = torch.zeros((1, n, n), dtype=torch.uint8, device=dev)
+    ext = torch.cat([empty if below is None else below, occ.to(torch.uint8),
+                     empty if above is None else above]).bool()
+    # The mask over the extended planes; the ends are planes past the
+    # grid (z = -1, n: out of grid, empty) or a neighbour's own plane,
+    # whose mask is not this slab's to count.
+    boundary = _boundary_mask(ext)[1:-1]
+    del ext
+    bad_sign, zero_off = checker.sign_zero_counts(sdf, occ, boundary)
+    seeds = torch.nonzero(boundary)
+    del boundary
+    seeds[:, 0] += z * slab
+    pick = checker.sample_voxels(n, samples, seed).to(dev)
+    org = org_tensor(spec, dev)
+    brute = C.all_reduce(checker.brute_min(pick, seeds, org), group, op=dist.ReduceOp.MIN)
+    mine = (pick[:, 0] >= z * slab) & (pick[:, 0] < (z + 1) * slab)
+    local = pick[:, 0].clamp(z * slab, (z + 1) * slab - 1) - z * slab
+    got = torch.where(mine, sdf[local, pick[:, 1], pick[:, 2]].abs(),
+                      torch.zeros((), device=dev))
+    got = C.all_reduce(got, group)  # each sample lies in one rank's slab
+    counts = C.all_reduce(torch.tensor([bad_sign, zero_off, seeds.shape[0]], device=dev,
+                                       dtype=torch.int64), group)
+    return checker.judge(int(counts[2]), int(counts[0]), int(counts[1]), got, brute)
+
+
+def wide_rank(rank: int, dz: int, n_req: int, directory: str) -> int:
+    """A rank of part 3: calibrate at CALIBRATE_N; at CHECK_N the field
+    against the single-card jfa_wide on rank 0; at n_req, if its
+    reckoned peak fits every rank, the flood and its slab checks."""
+    import torch.distributed as dist
+
+    from voxtpu_torch.ops.jfa import jfa_wide
     from voxtpu_torch.parallel import collectives as C
     from voxtpu_torch.parallel.distributed import (global_mesh, init_distributed,
                                                    shutdown_distributed)
@@ -144,40 +208,63 @@ def wide_rank(rank: int, dz: int, n_req: int, directory: str) -> int:
     checker = _load("check_jfa_wide", os.path.join(ROOT, "tools", "check_jfa_wide.py"))
     try:
         dmesh = global_mesh(("d", "z"), (1, dz))
+        group = dmesh.get_group("z")
         meshes = smoke.washer_meshes()
+        res = {}
+        # Calibration: the bytes a slab voxel took beyond a chunk's temporaries.
         occ, sdf, _, _, peak = _wide_flood(rank, dz, dmesh, meshes, CALIBRATE_N)
         del occ, sdf
-        torch.cuda.empty_cache()
-        measured = torch.tensor([peak / (CALIBRATE_N ** 3 / dz)], device=dev)
-        free = torch.tensor([float(torch.cuda.mem_get_info(dev)[0])], device=dev)
-        measured = C.all_reduce(measured, dist.group.WORLD, op=dist.ReduceOp.MAX)
-        free = C.all_reduce(free, dist.group.WORLD, op=dist.ReduceOp.MIN)
-        per_voxel = max(STEP_BYTES, float(measured))
-        n = n_req or largest_wide_n(int(free) - 2 * 2**30, dz, per_voxel)
-        need = sharded_wide_peak(MAX_WIDE_N, dz, per_voxel)
-        smoke.world_log(rank, dz, f"measured {float(measured):.2f} bytes a slab voxel "
-                        f"at {CALIBRATE_N}^3 (reckoned {STEP_BYTES}); {MAX_WIDE_N}^3 needs "
-                        f"{need / 2**30:.1f} GiB a rank, {float(free) / 2**30:.1f} GiB free: "
-                        f"N = {n}")
-        occ, sdf, spec, wall, peak = _wide_flood(rank, dz, dmesh, meshes, n)
-        slab = n // dz
+        temps = step_peak(CALIBRATE_N, dz, 0)
+        measured = torch.tensor([(peak - temps) / (CALIBRATE_N ** 3 / dz)], device=dev)
+        measured = float(C.all_reduce(measured, group, op=dist.ReduceOp.MAX))
+        res["measured"] = measured
+
+        occ, sdf, spec, wall, _ = _wide_flood(rank, dz, dmesh, meshes, CHECK_N)
+        slab = CHECK_N // dz
         full = full_occ = None
         if rank == 0:
-            full = torch.empty((n, n, n), dtype=torch.float32, device=dev)
-            full_occ = torch.empty((n, n, n), dtype=torch.bool, device=dev)
+            full = torch.empty((CHECK_N,) * 3, dtype=torch.float32, device=dev)
+            full_occ = torch.empty((CHECK_N,) * 3, dtype=torch.bool, device=dev)
         for src, dst in ((sdf, full), (occ, full_occ)):
             parts = None if rank else [dst[r * slab:(r + 1) * slab] for r in range(dz)]
             dist.gather(src, parts, dst=0)
         del occ, sdf
-        res = {"n": n, "wall": wall, "peak": peak, "measured": float(measured),
-               "free": float(free)}
+        res["check_wall"] = wall
         if rank == 0:
+            single = jfa_wide(full_occ, spec)
+            res["bitwise"] = torch.equal(single.view(torch.int32), full.view(torch.int32))
+            smoke.world_log(rank, dz, f"{CHECK_N}^3: the sharded wide field against the "
+                            f"single-card jfa_wide: bitwise {res['bitwise']}")
+            del single
+        del full, full_occ
+        torch.cuda.empty_cache()
+        smoke.barrier(dz)
+
+        free = torch.tensor([float(torch.cuda.mem_get_info(dev)[0])], device=dev)
+        free = float(C.all_reduce(free, group, op=dist.ReduceOp.MIN))
+        per_voxel = max(STEP_BYTES, measured)
+        need = sharded_wide_peak(n_req, dz, per_voxel)
+        fits = largest_wide_n(int(free), dz, per_voxel)
+        res.update(n=n_req, free=free, need=need, fits=fits)
+        smoke.world_log(rank, dz, f"measured {measured:.2f} bytes a slab voxel at "
+                        f"{CALIBRATE_N}^3 beyond a chunk (reckoned {STEP_BYTES}); {n_req}^3 "
+                        f"needs {need / 2**30:.2f} GiB a rank, {free / 2**30:.2f} GiB free; "
+                        f"the largest N that fits: {fits}")
+        if need <= free:
+            occ, sdf, spec, wall, peak = _wide_flood(rank, dz, dmesh, meshes, n_req)
+            res.update(wall=wall, peak=peak)
             t0 = time.perf_counter()
-            res["checks"] = checker.check_wide_field(full, full_occ, spec, samples=1024,
-                                                     seed=0)
+            try:
+                res["checks"] = check_slab(checker, sdf, occ, spec, group,
+                                           dmesh.get_local_rank("z"), dz)
+            except checker.CheckFailed as e:
+                res["failed"] = str(e)
             res["check_s"] = time.perf_counter() - t0
-            smoke.world_log(rank, dz, f"{n}^3 field on rank 0: {res['checks']} (checked "
-                            f"in {res['check_s']:.1f} s)")
+            smoke.world_log(rank, dz, f"{n_req}^3 field, checked a slab a rank: "
+                            f"{res.get('checks', res.get('failed'))} "
+                            f"({res['check_s']:.1f} s)")
+            del occ, sdf
+        res["peak_all"] = torch.cuda.max_memory_allocated()
         smoke.barrier(dz)
         with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
@@ -225,15 +312,15 @@ def main(argv=None) -> int:
     p.add_argument("--worlds", type=int, nargs="*", default=[1, 2, 4])
     p.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
                    help="gloo puts every rank of parts 1 and 2 on card 0 (one-card runs)")
-    p.add_argument("--wide-n", type=int, default=None,
-                   help="N of part 3 (0 skips it; default: the largest that fits)")
+    p.add_argument("--wide-n", type=int, default=WIDE_N,
+                   help=f"N of part 3's flood (0 skips part 3; default {WIDE_N})")
     p.add_argument("--wide-ranks", type=int, default=WIDE_RANKS,
                    help="ranks (cards) of part 3, its z axis (default 4)")
     p.add_argument("--wide-rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dir", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.wide_rank is not None:
-        return wide_rank(args.wide_rank, args.wide_ranks, args.wide_n or 0, args.dir)
+        return wide_rank(args.wide_rank, args.wide_ranks, args.wide_n, args.dir)
     if not torch.cuda.is_available():
         print("check_sharded_cards: no CUDA device is available", file=sys.stderr)
         return 2
@@ -283,18 +370,34 @@ def main(argv=None) -> int:
                 wide = smoke.run_world(
                     dz, "nccl", wdir, 1500,
                     argv=lambda r: [sys.executable, script, "--wide-rank", str(r),
-                                    "--wide-ranks", str(dz), "--wide-n", str(args.wide_n or 0),
+                                    "--wide-ranks", str(dz), "--wide-n", str(args.wide_n),
                                     "--dir", wdir])
     except smoke.SmokeFailure as e:
         print(f"check_sharded_cards: FAILED: {e}", file=sys.stderr)
         return 1
     summary(results, card_lines)
     if wide is not None:
-        w0 = wide[0]
-        print(f"wide flood on (1, {dz}) at {w0['n']}^3: wall {w0['wall']:.2f} s, peak a "
-              "rank " + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in wide)
-              + f" GiB beyond occ; measured {w0['measured']:.2f} bytes a slab voxel at "
-              f"{CALIBRATE_N}^3; check_wide_field {w0['checks']}")
+        w0, n = wide[0], args.wide_n
+        print(f"wide flood on (1, {dz}): {CALIBRATE_N}^3 measured {w0['measured']:.2f} bytes a "
+              f"slab voxel beyond a chunk (reckoned {STEP_BYTES}); {CHECK_N}^3 "
+              f"{w0['check_wall']:.2f} s, bitwise the single-card jfa_wide: {w0['bitwise']}")
+        if not w0["bitwise"]:
+            print(f"check_sharded_cards: FAILED: the sharded wide field at {CHECK_N}^3 differs "
+                  "from the single-card jfa_wide", file=sys.stderr)
+            return 1
+        if w0["need"] > w0["free"]:
+            print(f"check_sharded_cards: FAILED: {n}^3 needs {w0['need'] / 2**30:.2f} GiB a "
+                  f"rank, {w0['free'] / 2**30:.2f} GiB free; the largest N that fits is "
+                  f"{w0['fits']}", file=sys.stderr)
+            return 1
+        print(f"wide flood on (1, {dz}) at {n}^3: wall {w0['wall']:.2f} s, peak a rank "
+              + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in wide)
+              + f" GiB beyond occ (reckoned {step_peak(n, dz) / 2**30:.2f}; whole run "
+              + ", ".join(f"{r['peak_all'] / 2**30:.2f}" for r in wide)
+              + f" GiB); checks a slab a rank: {w0.get('checks', w0.get('failed'))}")
+        if "failed" in w0:
+            print(f"check_sharded_cards: FAILED: {w0['failed']}", file=sys.stderr)
+            return 1
     print(f"check_sharded_cards: every check passed in {time.perf_counter() - t_all:.1f} s")
     return 0
 

@@ -86,8 +86,9 @@ class VoxelGrid:
         return unpack_bits(self.words)
 
     def count(self) -> int:
-        """Number of set voxels (popcount over all words)."""
-        return int(popcount32(self.words).sum())
+        """Number of set voxels (popcount over all words, in chunks:
+        `packed_popcount`)."""
+        return packed_popcount(self.words)
 
     def spec(self) -> GridSpec:
         return GridSpec(n=self.n,
@@ -122,3 +123,61 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+# ---------------------------------------------------------------------------
+# Checks that stay packed: a 4096^3 grid is 2^31 words (8 GiB); unpacked
+# it would take 64 GiB, and one int64 temporary of its size 16 GiB. These
+# walk the words in chunks of CHECK_CHUNK.
+# ---------------------------------------------------------------------------
+
+CHECK_CHUNK = 1 << 24  # words a chunk of the packed checks (64 MiB of int32)
+_MASK32 = 0xFFFFFFFF
+
+
+def _chunks(words: torch.Tensor):
+    flat = words.reshape(-1)
+    for i in range(0, flat.shape[0], CHECK_CHUNK):
+        yield i, flat[i:i + CHECK_CHUNK]
+
+
+def packed_popcount(words: torch.Tensor) -> int:
+    """Set bits of an int32 word tensor, summed a chunk at a time."""
+    total = torch.zeros((), dtype=torch.int64, device=words.device)
+    for _, w in _chunks(words):
+        total += popcount32(w).sum()
+    return int(total)
+
+
+def xor_popcount(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Set bits of a ^ b over two int32 word tensors of one shape (the
+    voxels where two packed grids differ), a chunk at a time."""
+    if a.shape != b.shape:
+        raise ValueError(f"grids of shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    total = torch.zeros((), dtype=torch.int64, device=a.device)
+    for (_, w), (_, v) in zip(_chunks(a), _chunks(b)):
+        total += popcount32(w ^ v).sum()
+    return int(total)
+
+
+def grid_digest(words: torch.Tensor) -> tuple[int, int, int]:
+    """voxtpu's order-robust packed-grid digest (`bench.py:395-419`):
+    (total popcount, sum of w * m1, sum of w * m2), each mod 2^32, over
+    the (n, n, nw) words w as uint32 at flat position pos = row * nw +
+    word, with m1 = pos * 2654435761 | 1 and m2 = (pos ^ 0x9E3779B9) *
+    0x85EBCA6B | 1 (mod 2^32). Any one differing word changes h1 and h2
+    (odd multipliers are units mod 2^32), so two grids that cannot be
+    held at once are compared by their digests.
+
+    In int64, a chunk at a time: products and sums wrap mod 2^64, which
+    keeps their low 32 bits."""
+    pop = h1 = h2 = torch.zeros((), dtype=torch.int64, device=words.device)
+    for i, w in _chunks(words):
+        pos = torch.arange(i, i + w.shape[0], dtype=torch.int64, device=words.device)
+        u = w.to(torch.int64) & _MASK32
+        m1 = ((pos * 2654435761) & _MASK32) | 1
+        m2 = (((pos ^ 0x9E3779B9) * 0x85EBCA6B) & _MASK32) | 1
+        pop = pop + popcount32(w).sum()
+        h1 = (h1 + ((u * m1) & _MASK32).sum()) & _MASK32
+        h2 = (h2 + ((u * m2) & _MASK32).sum()) & _MASK32
+    return int(pop) & _MASK32, int(h1), int(h2)

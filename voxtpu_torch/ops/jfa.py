@@ -273,20 +273,21 @@ def jfa_wide(occ: torch.Tensor, spec: GridSpec, *, budget: int = WIDE_BUDGET) ->
 
 
 def _sdf_from_seed_wide(hi: torch.Tensor, lo: torch.Tensor, occ: torch.Tensor,
-                        org: torch.Tensor, *, chunk: int) -> torch.Tensor:
+                        org: torch.Tensor, *, chunk: int, z0: int = 0) -> torch.Tensor:
     """`jfa_wide`'s output pass, in z-chunks of `chunk` planes: sign(occ)
-    * `_seed_d2_wide`, float32 (n, n, n), +1 where occupied, -1 elsewhere
-    (`_final_wide_jit`, `jfa.py:304-307`)."""
+    * `_seed_d2_wide`, float32 of `occ`'s shape, +1 where occupied, -1
+    elsewhere (`_final_wide_jit`, `jfa.py:304-307`). `occ` is (planes,
+    n, n), the grid's planes from `z0` on (a sharded Z-slab's)."""
     from voxtpu_torch.ops.jfa_cuda import _corners
 
-    n = occ.shape[0]
+    planes, n = occ.shape[0], occ.shape[1]
     px, py, pz = _corners(n, org)
     one = torch.ones((), dtype=torch.float32, device=occ.device)
-    out = torch.empty((n, n, n), dtype=torch.float32, device=occ.device)
-    for z0 in range(0, n, chunk):
-        z1 = min(z0 + chunk, n)
-        d2 = _seed_d2_wide(hi[z0:z1], lo[z0:z1], org, px, py, pz[z0:z1])
-        torch.mul(torch.where(occ[z0:z1], one, -one), d2, out=out[z0:z1])
+    out = torch.empty(tuple(occ.shape), dtype=torch.float32, device=occ.device)
+    for c0 in range(0, planes, chunk):
+        c1 = min(c0 + chunk, planes)
+        d2 = _seed_d2_wide(hi[c0:c1], lo[c0:c1], org, px, py, pz[z0 + c0:z0 + c1])
+        torch.mul(torch.where(occ[c0:c1], one, -one), d2, out=out[c0:c1])
     return out
 
 

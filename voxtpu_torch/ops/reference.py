@@ -7,6 +7,7 @@ conventions), and every accelerated backend (xla / pallas / native) is
 unit-tested against them:
 
 - :func:`voxelize_ref`  — solid voxelization, `vplib/src/vox/sequential.cpp:18-61`
+  (:func:`voxelize_ref_planes`: the same, on chosen z-planes only)
 - :func:`jfa_ref`       — Jump-Flooding SDF,   `vplib/src/jfa/sequential.cpp:24-125`
 - :func:`csg_ref`       — CSG word fold,       `vplib/src/csg/sequential.cpp:18-28`
 
@@ -103,6 +104,73 @@ def voxelize_ref(mesh: Mesh, spec: GridSpec) -> np.ndarray:
             occ[zs[z_i], ys[y_i], start_x[z_i, y_i]:] ^= True
 
     return occ
+
+
+def voxelize_ref_planes(mesh: Mesh, spec: GridSpec, planes) -> np.ndarray:
+    """Planes z of `voxelize_ref`'s grid, (len(planes), N, N) bool [p, y,
+    x], for a grid too large to voxelize whole (4096^3 is 64 GiB dense).
+
+    `voxelize_ref`'s arithmetic term for term, with each face's raster
+    rows z restricted to the given planes (strictly increasing, in [0,
+    N)). The faces whose z window [start_z, end_z) holds none of them
+    are dropped first, with the windows computed for all faces at once
+    in the same float32 operations; only the others take a Python
+    iteration."""
+    n = spec.n
+    planes = np.asarray(planes, dtype=np.int64)
+    if planes.ndim != 1 or (planes.size and (planes[0] < 0 or planes[-1] >= n
+                                             or (np.diff(planes) <= 0).any())):
+        raise ValueError(f"planes must be strictly increasing in [0, {n})")
+    ox, oy, oz = (np.float32(v) for v in spec.origin)
+    vs = np.float32(spec.voxel_size)
+    out = np.zeros((planes.size, n, n), dtype=bool)
+
+    coords = mesh.coords.astype(np.float32)
+    tri = coords[mesh.faces]  # (F, 3, 3)
+    mins = np.minimum(np.minimum(tri[:, 0], tri[:, 1]), tri[:, 2])
+    maxs = np.maximum(np.maximum(tri[:, 0], tri[:, 1]), tri[:, 2])
+    start_y = np.maximum(np.floor((mins[:, 1] - oy) / vs).astype(np.int64), 0)
+    end_y = np.minimum(np.ceil((maxs[:, 1] - oy) / vs).astype(np.int64), n)
+    start_z = np.maximum(np.floor((mins[:, 2] - oz) / vs).astype(np.int64), 0)
+    end_z = np.minimum(np.ceil((maxs[:, 2] - oz) / vs).astype(np.int64), n)
+    first = np.searchsorted(planes, start_z)
+    last = np.searchsorted(planes, end_z)  # planes [first, last) lie in the window
+    keep = np.nonzero((last > first) & (start_y < end_y))[0]
+
+    for f in keep:
+        v0, v1, v2 = tri[f]
+        normal = np.cross(v1 - v0, v2 - v1)
+        sign = np.float32(1.0 if normal[0] >= 0 else -1.0)
+        edge0 = v1 - v0
+        edge1 = v2 - v0
+        A, B, C = np.cross(edge0, edge1).astype(np.float32)
+        D = np.float32(A * v0[0] + B * v0[1] + C * v0[2])
+
+        ys = np.arange(start_y[f], end_y[f], dtype=np.int64)
+        rows = np.arange(first[f], last[f])
+        zs = planes[rows]
+        cy = (oy + (ys.astype(np.float32) * vs + vs / np.float32(2)))[None, :]  # (1, Y)
+        cz = (oz + (zs.astype(np.float32) * vs + vs / np.float32(2)))[:, None]  # (Z, 1)
+
+        e0 = _edge_zy(v0, v1, cy, cz) * sign
+        e1 = _edge_zy(v1, v2, cy, cz) * sign
+        e2 = _edge_zy(v2, v0, cy, cz) * sign
+        inside = (e0 >= 0) & (e1 >= 0) & (e2 >= 0)  # (Z, Y)
+        if not inside.any():
+            continue
+
+        with np.errstate(divide="ignore", invalid="ignore"):
+            intersection = (D - B * cy - C * cz) / A  # (Z, Y) float32
+            xf = (intersection - ox) / vs
+        valid = inside & np.isfinite(xf) & (xf < n)
+        start_x = np.where(valid, np.trunc(np.nan_to_num(xf)).astype(np.int64), n)
+        start_x = np.clip(start_x, 0, n)
+
+        zz, yy = np.nonzero(valid)
+        for z_i, y_i in zip(zz, yy):
+            out[rows[z_i], ys[y_i], start_x[z_i, y_i]:] ^= True
+
+    return out
 
 
 # ---------------------------------------------------------------------------
