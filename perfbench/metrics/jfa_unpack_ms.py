@@ -1,0 +1,11 @@
+"""jfa_unpack_ms: the device time of a traced SDF request's unpack of the
+packed grid (`jfa.unpack`, `VoxelGrid.to_dense` in `jfa()`), in ms;
+on the card's clock: CUDA events on the stream at the span's
+entry and exit, recorded inside the benchmark's span sdf.request
+(`--trace 1` only; device_trace)."""
+
+from harness.port_spans import mean_device_ms
+
+
+def read(ctx):
+    return mean_device_ms(ctx, "sdf.request", "jfa.unpack")

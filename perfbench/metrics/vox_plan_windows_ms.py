@@ -1,0 +1,11 @@
+"""vox_plan_windows_ms: the host time of the serving plan's phase
+`vox.plan.windows` (`_candidate_x_windows` and the narrow / wide split) a
+traced request, in ms;
+the program's span inside the benchmark's span vox.plan (host
+clock, `--trace 1` only)."""
+
+from harness.port_spans import mean_ms
+
+
+def read(ctx):
+    return mean_ms(ctx, "vox.plan", "vox.plan.windows")

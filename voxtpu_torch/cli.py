@@ -29,8 +29,10 @@ filenames    input meshes (positional or -i)
              plain torch versions; `cuda` without a CUDA device exits
              with an error, it never falls back to the CPU.
 --trace DIR  write a torch.profiler Chrome trace of the pipeline into
-             DIR (a named range for each profiling scope, and the
-             card's kernels; utils/trace.py)
+             DIR (a named range for each profiling scope, the port's
+             phases inside them: the serving plan's voxtpu.vox.plan.*,
+             the JFA's voxtpu.jfa.*, and the card's kernels;
+             utils/trace.py)
 ==========  ======================================================
 
 Profiling scopes print ``[Label]: X ms`` lines (``CudaVox(mesh.obj)``,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from voxtpu_torch.ops.soft_vox import refresh_soft_plan, soft_voxelize
+from voxtpu_torch.utils.trace import span
 
 ENGINES = ("plain", "cuda", "fused", "seg")
 
@@ -145,31 +146,37 @@ class VoxelFit:
 
     def _rebuild_engine(self):
         te, tx = self._tau
-        if self.engine == "fused":
-            from voxtpu_torch.ops.soft_vox_fused import (FusedSoftPlan,
-                                                         soft_voxelize_fused)
-
-            eplan = FusedSoftPlan(self.plan, self.device)
-            self._fwd = lambda c: soft_voxelize_fused(
-                c, eplan, tau_edge_frac=te, tau_x_frac=tx)
-        elif self.engine == "cuda":
-            from voxtpu_torch.ops.soft_vox_cuda import (SoftCudaPlan,
-                                                        soft_voxelize_cuda)
-
-            eplan = SoftCudaPlan(self.plan, self.device)
-            self._fwd = lambda c: soft_voxelize_cuda(
-                c, eplan, tau_edge_frac=te, tau_x_frac=tx)
-        elif self.engine == "seg":
-            from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan, soft_voxelize_seg
-
-            eplan = SegSoftPlan(self.plan, self._plan_coords, self.device)
-            self._fwd = lambda c: soft_voxelize_seg(
-                c, eplan, tau_edge_frac=te, tau_x_frac=tx)
-        else:
+        if self.engine == "plain":
             plan = self.plan
             self._fwd = lambda c: soft_voxelize(c, plan, tau_edge_frac=te,
                                                 tau_x_frac=tx)
-        self.engine_plan = None if self.engine == "plain" else eplan
+            self.engine_plan = None
+            return
+        with span("soft.engine_plan") as sp:
+            if self.engine == "fused":
+                from voxtpu_torch.ops.soft_vox_fused import (FusedSoftPlan,
+                                                             soft_voxelize_fused)
+
+                eplan = FusedSoftPlan(self.plan, self.device)
+                self._fwd = lambda c: soft_voxelize_fused(
+                    c, eplan, tau_edge_frac=te, tau_x_frac=tx)
+            elif self.engine == "cuda":
+                from voxtpu_torch.ops.soft_vox_cuda import (SoftCudaPlan,
+                                                            soft_voxelize_cuda)
+
+                eplan = SoftCudaPlan(self.plan, self.device)
+                self._fwd = lambda c: soft_voxelize_cuda(
+                    c, eplan, tau_edge_frac=te, tau_x_frac=tx)
+            else:
+                from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan, soft_voxelize_seg
+
+                eplan = SegSoftPlan(self.plan, self._plan_coords, self.device)
+                self._fwd = lambda c: soft_voxelize_seg(
+                    c, eplan, tau_edge_frac=te, tau_x_frac=tx)
+            for key in ("fragments", "pairs"):
+                if hasattr(eplan, "num_" + key):
+                    sp.count(key, getattr(eplan, "num_" + key))
+        self.engine_plan = eplan
 
     def _coords(self, coords) -> torch.Tensor:
         return torch.as_tensor(coords, dtype=torch.float32).to(self.device)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid
+from voxtpu_torch.utils.trace import span
 
 BACKENDS = ("reference", "plain", "cuda", "native")
 
@@ -263,13 +264,15 @@ def jfa_wide(occ: torch.Tensor, spec: GridSpec, *, budget: int = WIDE_BUDGET) ->
     from voxtpu_torch.ops.jfa_cuda import org_tensor
 
     chunk = _wide_chunk(n, budget)
-    hi, lo = jfa_init_seed_wide(occ)
-    zz, yy, xx = _int_coords((n, n, n), device=occ.device)
-    k = n // 2
-    while k >= 1:
-        hi, lo = _flood_step_seed_wide(hi, lo, k, n, zz, yy, xx, chunk=chunk)
-        k //= 2
-    return _sdf_from_seed_wide(hi, lo, occ, org_tensor(spec, occ.device), chunk=chunk)
+    with span("jfa.seed_init", device=occ.device):
+        hi, lo = jfa_init_seed_wide(occ)
+    with span("jfa.flood", device=occ.device):
+        zz, yy, xx = _int_coords((n, n, n), device=occ.device)
+        k = n // 2
+        while k >= 1:
+            hi, lo = _flood_step_seed_wide(hi, lo, k, n, zz, yy, xx, chunk=chunk)
+            k //= 2
+        return _sdf_from_seed_wide(hi, lo, occ, org_tensor(spec, occ.device), chunk=chunk)
 
 
 def _sdf_from_seed_wide(hi: torch.Tensor, lo: torch.Tensor, occ: torch.Tensor,
@@ -308,7 +311,8 @@ def jfa(grid: VoxelGrid | torch.Tensor, spec: GridSpec | None = None,
     if pipe and backend != "cuda":
         raise ValueError(f"pipe=True needs backend 'cuda', not {backend!r}")
     if isinstance(grid, VoxelGrid):
-        occ = grid.to_dense()
+        with span("jfa.unpack", device=grid.words.device):
+            occ = grid.to_dense()
         spec = grid.spec() if spec is None else spec
     else:
         occ = grid.bool()

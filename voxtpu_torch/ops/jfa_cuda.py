@@ -54,6 +54,7 @@ from voxtpu_torch import _build
 from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.ops.jfa import (_MAX_PACKED_N, _NO_SEED, _OFFSETS, jfa_init_seed,
                                   jfa_wide, seed_encoding)
+from voxtpu_torch.utils.trace import span
 
 _MASK10 = 0x3FF
 FULL_PLANE_MAX_N = 512  # B3 up to here, B4 above (voxtpu's jfa_pallas routing)
@@ -400,16 +401,18 @@ def _flood(occ: torch.Tensor, spec: GridSpec, plain: bool,
     step = flood_step_for(n, plain=plain)
     pipe = pipe and n <= FULL_PLANE_MAX_N
     org = org_tensor(spec, occ.device)
-    seed = jfa_init_seed(occ)
-    k = n // 2
-    while k >= (2 if pipe else 1):
-        # The residue walk needs k | n: non-divisor strides (N = 224 ->
-        # k = 3) take B3, as in voxtpu's `_jfa_pallas`.
-        seed = (flood_step_pipe if pipe and n % k == 0 else step)(seed, org, k)
-        k //= 2
-    if pipe:  # k = 1 fused with the signed distance pass
-        return flood_step_pipe(seed, org, 1, occ)
-    return (sdf_from_seed_plain if plain else sdf_from_seed)(seed, occ, org)
+    with span("jfa.seed_init", device=occ.device):
+        seed = jfa_init_seed(occ)
+    with span("jfa.flood", device=occ.device):
+        k = n // 2
+        while k >= (2 if pipe else 1):
+            # The residue walk needs k | n: non-divisor strides (N = 224 ->
+            # k = 3) take B3, as in voxtpu's `_jfa_pallas`.
+            seed = (flood_step_pipe if pipe and n % k == 0 else step)(seed, org, k)
+            k //= 2
+        if pipe:  # k = 1 fused with the signed distance pass
+            return flood_step_pipe(seed, org, 1, occ)
+        return (sdf_from_seed_plain if plain else sdf_from_seed)(seed, occ, org)
 
 
 def jfa_cuda(occ: torch.Tensor, spec: GridSpec, pipe: bool | None = None,

@@ -39,6 +39,7 @@ from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.ops.vox import (FragmentPlan, _edge_zy, _pad_granular,
                                   _pad_rows, _triangle_windows,
                                   _window_classes)
+from voxtpu_torch.utils.trace import span
 
 # Elements of one chunk's (fragments, N) temporaries in the plain
 # versions: 2^25 float32 values, 128 MiB each.
@@ -226,7 +227,15 @@ def make_soft_plan(mesh: Mesh, spec: GridSpec, pad_window: int = 1) -> FragmentP
     """Soft plan: per-bucket face indices and padded raster windows
     (`soft_vox.py:160-237`, line for line). `pad_window` widens the
     windows so that sigmoid tails and small vertex motions stay covered;
-    fragment count grows about quadratically with it."""
+    fragment count grows about quadratically with it. Span
+    ``soft.plan``, counting the plan's fragments."""
+    with span("soft.plan") as sp:
+        plan = _soft_plan(mesh, spec, pad_window)
+        sp.count("fragments", plan.num_fragments)
+    return plan
+
+
+def _soft_plan(mesh: Mesh, spec: GridSpec, pad_window: int) -> FragmentPlan:
     plan = FragmentPlan.__new__(FragmentPlan)  # a bare plan, filled below
     plan.spec = spec
     plan.faces_array = np.asarray(mesh.faces, np.int32)

@@ -48,6 +48,7 @@ from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS,
                                        tile_batches, wide_fill_into)
 from voxtpu_torch.ops.vox_slots import (_batch_index, _exact_candidates,
                                         _slot_emit, _slot_rows)
+from voxtpu_torch.utils.trace import span
 
 # Fill window columns (multiple of 32; >= 32 + 2*ceil(err) + 1).
 BAND = 256
@@ -215,6 +216,63 @@ def _candidate_x_windows(tri, cell, v0, v1, v2, spec: GridSpec):
     return xlo, xhi
 
 
+def _narrow_batches(c_n, t_n, xlo_n, xhi_n, *, n: int, tc: int, band: int,
+                    tb: int, g: int, num_tiles: int):
+    """The narrow candidates' batches (`vox_slots_banded.py:389-448`):
+    slots sorted by (tile, window start), greedy cuts of up to `tb`
+    consecutive slots whose windows fit one band from the first slot's
+    aligned base, every group of `g` tiles padded to a multiple of PACK
+    with inert batches (start == end). Returns (batch_tile, batch_base,
+    local_b, tri_b), int64 tiles and bases and the (B, tb) slot arrays."""
+    order = np.lexsort((xlo_n, c_n // tc)) if len(t_n) else \
+        np.zeros((0,), np.int64)
+    c_n, t_n = c_n[order], t_n[order]
+    local_n = (c_n % tc).astype(np.int32)
+    xlo_s = xlo_n[order]
+    xhi_s = xhi_n[order]
+    tile_s = (c_n // tc).astype(np.int64)
+    tbounds = np.searchsorted(tile_s,
+                              np.arange(num_tiles + 1, dtype=np.int64))
+    batch_tile, batch_base, starts, ends = [], [], [], []
+    for t in np.nonzero(np.diff(tbounds))[0]:
+        i, b1 = int(tbounds[t]), int(tbounds[t + 1])
+        while i < b1:
+            base = min((int(xlo_s[i]) // WORD_BITS) * WORD_BITS, n - band)
+            w_end = min(i + tb, b1)
+            viol = xhi_s[i:w_end] >= base + band
+            k0 = i + int(np.argmax(viol)) if viol.any() else w_end
+            batch_tile.append(int(t))
+            batch_base.append(base)
+            starts.append(i)
+            ends.append(k0)
+            i = k0
+    if not batch_tile:  # empty narrow set: one inert batch on tile 0
+        batch_tile, batch_base, starts, ends = [0], [0], [0], [0]
+
+    bt2, bb2, st2, en2 = [], [], [], []
+    i = 0
+    while i < len(batch_tile):
+        j = i
+        while j < len(batch_tile) and batch_tile[j] // g == \
+                batch_tile[i] // g:
+            j += 1
+        bt2 += batch_tile[i:j]
+        bb2 += batch_base[i:j]
+        st2 += starts[i:j]
+        en2 += ends[i:j]
+        for _ in range((-(j - i)) % PACK):
+            bt2.append(batch_tile[j - 1])
+            bb2.append(batch_base[j - 1])
+            st2.append(0)
+            en2.append(0)
+        i = j
+    starts = np.asarray(st2, np.int64)
+    ends = np.asarray(en2, np.int64)
+    return (np.asarray(bt2, np.int64), np.asarray(bb2, np.int64),
+            _batch_index(starts, ends, local_n, tb, -1),
+            _batch_index(starts, ends, t_n, tb, 0))
+
+
 class BandedSlotVoxPipeline:
     """Whole-pipeline voxelizer with a static (tile, x-band) slot layout,
     built once on the host for one (mesh, grid) pair; each call is the
@@ -243,119 +301,79 @@ class BandedSlotVoxPipeline:
         self.num_tiles = num_tiles
         g = _group_factor(nw, num_tiles)  # voxtpu pads each group to PACK
 
-        tri, cell, v0, v1, v2 = _exact_candidates(mesh, spec)
-        self.num_candidates = cell.shape[0]
-        xlo_c, xhi_c = _candidate_x_windows(tri, cell, v0, v1, v2, spec)
-        # A batch's band starts at its first slot's 32-aligned window
-        # base, so a candidate is narrow iff its window fits a band
-        # from that base.
-        base_c = np.minimum((xlo_c // WORD_BITS) * WORD_BITS, n - band)
-        narrow = xhi_c < base_c + band
-        c_n, t_n = cell[narrow], tri[narrow]
-        c_w, t_w = cell[~narrow], tri[~narrow]
-        self.num_wide = c_w.shape[0]
+        with span("vox.plan.candidates") as sp:
+            tri, cell, v0, v1, v2 = _exact_candidates(mesh, spec)
+            self.num_candidates = cell.shape[0]
+            sp.count("candidates", self.num_candidates)
 
-        # Narrow layout: slots sorted by (tile, window start), then
-        # greedy batch cuts of up to tb consecutive slots whose windows
-        # fit one band from the first slot's aligned base.
-        xlo_n, xhi_n = xlo_c[narrow], xhi_c[narrow]
-        order = np.lexsort((xlo_n, c_n // tc)) if len(t_n) else \
-            np.zeros((0,), np.int64)
-        c_n, t_n = c_n[order], t_n[order]
-        local_n = (c_n % tc).astype(np.int32)
-        xlo_s = xlo_n[order]
-        xhi_s = xhi_n[order]
-        tile_s = (c_n // tc).astype(np.int64)
-        tbounds = np.searchsorted(tile_s,
-                                  np.arange(num_tiles + 1, dtype=np.int64))
-        batch_tile, batch_base, starts, ends = [], [], [], []
-        for t in np.nonzero(np.diff(tbounds))[0]:
-            i, b1 = int(tbounds[t]), int(tbounds[t + 1])
-            while i < b1:
-                base = min((int(xlo_s[i]) // WORD_BITS) * WORD_BITS, n - band)
-                w_end = min(i + tb, b1)
-                viol = xhi_s[i:w_end] >= base + band
-                k0 = i + int(np.argmax(viol)) if viol.any() else w_end
-                batch_tile.append(int(t))
-                batch_base.append(base)
-                starts.append(i)
-                ends.append(k0)
-                i = k0
-        if not batch_tile:  # empty narrow set: one inert batch on tile 0
-            batch_tile, batch_base, starts, ends = [0], [0], [0], [0]
+        with span("vox.plan.windows"):
+            xlo_c, xhi_c = _candidate_x_windows(tri, cell, v0, v1, v2, spec)
+            # A batch's band starts at its first slot's 32-aligned window
+            # base, so a candidate is narrow iff its window fits a band
+            # from that base.
+            base_c = np.minimum((xlo_c // WORD_BITS) * WORD_BITS, n - band)
+            narrow = xhi_c < base_c + band
+            c_n, t_n = cell[narrow], tri[narrow]
+            c_w, t_w = cell[~narrow], tri[~narrow]
+            xlo_n, xhi_n = xlo_c[narrow], xhi_c[narrow]
+            self.num_wide = c_w.shape[0]
 
-        # Pad every group's batch run to a multiple of PACK with inert
-        # batches (start == end), voxtpu's layout.
-        bt2, bb2, st2, en2 = [], [], [], []
-        i = 0
-        while i < len(batch_tile):
-            j = i
-            while j < len(batch_tile) and batch_tile[j] // g == \
-                    batch_tile[i] // g:
-                j += 1
-            bt2 += batch_tile[i:j]
-            bb2 += batch_base[i:j]
-            st2 += starts[i:j]
-            en2 += ends[i:j]
-            for _ in range((-(j - i)) % PACK):
-                bt2.append(batch_tile[j - 1])
-                bb2.append(batch_base[j - 1])
-                st2.append(0)
-                en2.append(0)
-            i = j
-        batch_tile = np.asarray(bt2, np.int64)
-        batch_base = np.asarray(bb2, np.int64)
-        starts = np.asarray(st2, np.int64)
-        ends = np.asarray(en2, np.int64)
-        local_b = _batch_index(starts, ends, local_n, tb, -1)
-        tri_b = _batch_index(starts, ends, t_n, tb, 0)
-        self.num_batches = len(batch_tile)
-        self.num_slots = self.num_batches * tb
+        with span("vox.plan.batches") as sp:
+            batch_tile, batch_base, local_b, tri_b = _narrow_batches(
+                c_n, t_n, xlo_n, xhi_n, n=n, tc=tc, band=band, tb=tb, g=g,
+                num_tiles=num_tiles)
+            self.num_batches = len(batch_tile)
+            self.num_slots = self.num_batches * tb
+            _check_range(batch_tile, "batch_tile", 0, num_tiles)
+            _check_range(batch_base // WORD_BITS, "batch_basew", 0,
+                         (n - band) // WORD_BITS + 1)
+            # Wide fallback: whole-axis batches over a compact tile set
+            # (the wide candidates touch k << num_tiles tiles).
+            if self.num_wide:
+                orderw = np.argsort(c_w // tc, kind="stable")
+                c_w, t_w = c_w[orderw], t_w[orderw]
+                local_w = (c_w % tc).astype(np.int32)
+                tiles_w = c_w // tc
+                uidx = np.unique(tiles_w)
+                k = len(uidx)
+                compact_w = np.searchsorted(uidx, tiles_w)
+                bw = np.searchsorted(compact_w, np.arange(k + 1, dtype=np.int64))
+                w_ctiles, w_starts, w_ends = tile_batches(bw, tb)
+                w_local_b = _batch_index(w_starts, w_ends, local_w, tb, -1)
+                w_tri_b = _batch_index(w_starts, w_ends, t_w, tb, 0)
+                _check_range(w_ctiles, "w_ctile", 0, k)
+                self.num_batches += len(w_ctiles)
+            sp.count("batches", self.num_batches)
+            sp.count("wide", self.num_wide)
 
-        _check_range(batch_tile, "batch_tile", 0, num_tiles)
-        _check_range(batch_base // WORD_BITS, "batch_basew", 0,
-                     (n - band) // WORD_BITS + 1)
-        rows, local = _slot_rows(tri_b, local_b, v0, v1, v2, TB_SUB, device)
-        self.device = local.device
+        with span("vox.plan.upload"):
+            rows, local = _slot_rows(tri_b, local_b, v0, v1, v2, TB_SUB, device)
+            self.device = local.device
 
-        def dev32(a):
-            return torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.device)
+            def dev32(a):
+                return torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.device)
 
-        # Wide fallback: whole-axis batches over a compact tile set (the
-        # wide candidates touch k << num_tiles tiles).
-        wide, wide_layout = None, None
-        if self.num_wide:
-            orderw = np.argsort(c_w // tc, kind="stable")
-            c_w, t_w = c_w[orderw], t_w[orderw]
-            local_w = (c_w % tc).astype(np.int32)
-            tiles_w = c_w // tc
-            uidx = np.unique(tiles_w)
-            k = len(uidx)
-            compact_w = np.searchsorted(uidx, tiles_w)
-            bw = np.searchsorted(compact_w, np.arange(k + 1, dtype=np.int64))
-            w_ctiles, w_starts, w_ends = tile_batches(bw, tb)
-            w_local_b = _batch_index(w_starts, w_ends, local_w, tb, -1)
-            w_tri_b = _batch_index(w_starts, w_ends, t_w, tb, 0)
-            _check_range(w_ctiles, "w_ctile", 0, k)
-            w_rows, w_local = _slot_rows(w_tri_b, w_local_b, v0, v1, v2,
-                                         TB_SUB, device)
-            wide = (w_rows, w_local, dev32(uidx[w_ctiles]), dev32(w_ctiles),
-                    dev32(uidx))
-            wide_layout = fill_layout(w_ctiles, k, self.device, nw=nw, tc=tc,
-                                      name="w_ctile")
-            self.num_batches += len(w_ctiles)
+            wide, wide_layout = None, None
+            if self.num_wide:
+                w_rows, w_local = _slot_rows(w_tri_b, w_local_b, v0, v1, v2,
+                                             TB_SUB, device)
+                wide = (w_rows, w_local, dev32(uidx[w_ctiles]), dev32(w_ctiles),
+                        dev32(uidx))
+                wide_layout = fill_layout(w_ctiles, k, self.device, nw=nw, tc=tc,
+                                          name="w_ctile")
 
-        # The grid's geometry on the device, made once: a tensor made from
-        # host values copies them synchronously, which waits for the card.
-        self._origin = spec.origin_tensor(self.device)
-        self._voxel_size = spec.voxel_size_tensor(self.device)
-        self.state = BandedState(rows=rows, local=local,
-                                 batch_tile=dev32(batch_tile),
-                                 batch_basew=dev32(batch_base // WORD_BITS),
-                                 wide=wide,
-                                 layout=fill_layout(batch_tile, num_tiles, self.device,
-                                                    nw=nw, tc=tc),
-                                 wide_layout=wide_layout)
+            # The grid's geometry on the device, made once: a tensor made
+            # from host values copies them synchronously, which waits for
+            # the card.
+            self._origin = spec.origin_tensor(self.device)
+            self._voxel_size = spec.voxel_size_tensor(self.device)
+            self.state = BandedState(rows=rows, local=local,
+                                     batch_tile=dev32(batch_tile),
+                                     batch_basew=dev32(batch_base // WORD_BITS),
+                                     wide=wide,
+                                     layout=fill_layout(batch_tile, num_tiles, self.device,
+                                                        nw=nw, tc=tc),
+                                     wide_layout=wide_layout)
 
     def words(self):
         """One call: (words (n, n, n/32) int32, overflow () int64)."""

@@ -6,8 +6,10 @@ labels ``Parent::Child``, ``%f`` values. CUDA work is asynchronous, so
 a scope fenced on a CUDA tensor (:meth:`ProfilingScope.observe`) calls
 `torch.cuda.synchronize()` on that tensor's device before the clock
 stops. Each scope is also a named range of a `torch.profiler` trace
-(`utils/trace.py::annotate`), which costs a record_function's few
-microseconds where no trace runs. Scopes always print; voxtpu's
+(`utils/trace.py::annotate`), opened only while a profile runs (the
+CLI's ``--trace DIR``); there the port's own spans (`utils/trace.py::
+span`: the serving plan's, the soft plan's and the JFA's phases) nest
+inside the scopes, beside the kernels. Scopes always print; voxtpu's
 process-wide on/off switch is not carried over (only the CLI opens
 scopes).
 """
