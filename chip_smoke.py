@@ -28,7 +28,8 @@ and no result line:
    1,348,128 faces each (the second one shifted), written as OBJ files
    and run through `voxtpu_torch.cli` at 512^3 (vox -> CSG union ->
    JFA SDF -> export). The launch counts of the run must show every
-   kernel; the folded grid must equal the plain pipeline on the card
+   kernel, C1's both passes once for each of the CLI's two plans; the
+   folded grid must equal the plain pipeline on the card
    (xor popcount 0) and the SDF the plain flood (bitwise, inf == inf);
    every B3 step of the flood must equal its plain version and B4 in
    bands of 256 and 100. The batches per tile that B1 and B2 see are
@@ -45,7 +46,11 @@ and no result line:
    is timed (a call in a run, a single call, the host wall of
    `words()`), and its host part split into the geometry tensors, the
    emit, the wrappers' checks, the allocation, data_ptr and the stream,
-   and the ctypes calls (`host_split`). Then, while the
+   and the ctypes calls (`host_split`). C1, the serving plan's band cut
+   (`csrc/vox_plan.cu`), is caught on the sorted slots washer_a's plan
+   hands it: both passes bitwise their plain versions on host copies,
+   timed (a single call and `device_ms`) beside its bound and the plain
+   versions' host time. Then, while the
    folded grid is live, `jfa(grid, backend="cuda", pipe=True)` (voxtpu's
    JFA_PIPE=1) must launch B6 9 times (k = 256 ... 2 and the fused
    k = 1) and B3 and B5 never, and equal the CLI's SDF bitwise; B6 is
@@ -1880,6 +1885,74 @@ def fit_example(dev) -> None:
     print(f"fit_vertices: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
+def check_band_cut(errs, timings, bounds, mesh, spec, dev) -> None:
+    """The serving plan's band cut (C1, `csrc/vox_plan.cu`) on the sorted
+    slots the plan hands it for `mesh` at spec.n: both passes bitwise
+    their plain versions on host copies; each pass timed as a single call
+    and a launch in a run, beside the bound (each slot's window end and
+    each batch's first window read once a pass, the tile bounds and
+    offsets read, the counts and batches written once) and the plain
+    versions' host time. None of these launches is the path's own: C1's
+    count comes from the CLI's run."""
+    from voxtpu_torch.ops import vox_slots_banded as V
+
+    counts_fn, seen = V.band_cut_counts, {}
+
+    def catch(xlo, xhi, tbounds, **kw):
+        seen.update(args=(xlo, xhi, tbounds), kw=kw)
+        return counts_fn(xlo, xhi, tbounds, **kw)
+
+    catch.launches = 0  # the wrapper counts on the module's name, `catch` here
+    with uncounted(counts_fn, V.band_cut):
+        V.band_cut_counts = catch
+        try:
+            pipe = V.BandedSlotVoxPipeline(mesh, spec, dev)
+        finally:
+            V.band_cut_counts = counts_fn
+        (xlo, xhi, tbounds), kw = seen["args"], seen["kw"]
+        host = [a.cpu() for a in (xlo, xhi, tbounds)]
+        g = V._group_factor(spec.n // 32, pipe.num_tiles)
+        counts = counts_fn(xlo, xhi, tbounds, **kw)
+        t0 = time.perf_counter()
+        want = V.band_cut_counts_plain(*host, **kw)
+        plain_s = time.perf_counter() - t0
+        errs["C1"] = int_err(counts.cpu(), want)
+        require(torch_equal(counts.cpu(), want), "C1's count pass differs from its plain version")
+        off, pads, total = V._pack_runs(counts, g, V.PACK)
+        total = int(total)
+        got = V.band_cut(xlo, xhi, tbounds, off, pads, total=total, **kw)
+        t0 = time.perf_counter()
+        want = V.band_cut_plain(*host, off.cpu(), pads.cpu(), total=total, **kw)
+        plain_s += time.perf_counter() - t0
+        for a, b in zip(got, want):
+            errs["C1"] = max(errs["C1"], int_err(a.cpu(), b))
+            require(torch_equal(a.cpu(), b), "C1's write pass differs from its plain version")
+        require(torch_equal(got[0].cpu(), pipe.state.batch_tile.cpu()),
+                "C1's batches are not the plan's")
+
+        def both():
+            c = counts_fn(xlo, xhi, tbounds, **kw)
+            V.band_cut(xlo, xhi, tbounds, off, pads, total=total, **kw)
+            return c
+
+        timings["C1"] = (cuda_ms(both), plain_s * 1e3)
+        timings["C1", "device"] = device_ms(both, launches=20)
+    slots, tiles = int(host[2][-1]), pipe.num_tiles
+    real = total - int(pads.sum())
+    moved = 2 * (4 * slots + 4 * real + 4 * (tiles + 1)) + 4 * tiles + 8 * tiles + 16 * total
+    bounds["C1"] = bound(moved)
+    print(f"C1 band cut at {spec.n}^3 on {mesh.name}: {slots} narrow slots on {tiles} tiles, "
+          f"{total} batches ({total - real} pads); both passes {timings['C1'][0]:.4f} ms a "
+          f"single call, {timings['C1', 'device']:.4f} ms in a run, plain {plain_s * 1e3:.1f} "
+          f"ms on the host, bound {bounds['C1'][0]:.4f} ms ({bounds['C1'][1]}); bitwise equal")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
 def pipeline_inputs(pipe, spec):
     """The inputs of B1 and B2 in one call of a pipeline on the card."""
     from voxtpu_torch.ops.vox_slots_banded import emit_slots
@@ -2974,6 +3047,7 @@ def run() -> int:
     B3, B5, B6 = jfa_cuda.flood_step, jfa_cuda.sdf_from_seed, jfa_cuda.flood_step_pipe
     B4 = jfa_cuda.flood_step_rows
     B14, P1 = vox_work_queue.wq_fill, jfa_probe.flood_probe
+    band_cut_counts, band_cut = vox_slots_banded.band_cut_counts, vox_slots_banded.band_cut  # C1
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -3132,7 +3206,7 @@ def run() -> int:
         out_dir = os.path.join(tmp, "out")
         argv = [*paths, "-n", str(MAIN_N), "-t", "2", "-p", "1", "-s", "-e",
                 "-o", "merged.obj", "--out-dir", out_dir]
-        for fn in (B1, B2, B3, B5):
+        for fn in (B1, B2, B3, B5, band_cut_counts, band_cut):
             fn.launches = 0
         t0 = time.perf_counter()
         from voxtpu_torch import cli
@@ -3142,6 +3216,11 @@ def run() -> int:
         wall = time.perf_counter() - t0
         launches = {"B1": B1.launches, "B2": B2.launches, "B3": B3.launches,
                     "B5": B5.launches}
+        # The CLI builds one plan a mesh, each launching both passes of C1.
+        require(band_cut_counts.launches == band_cut.launches == len(paths),
+                f"C1: {band_cut_counts.launches} + {band_cut.launches} launches for "
+                f"{len(paths)} plans, not 2 a plan")
+        launches["C1"] = band_cut_counts.launches + band_cut.launches
         print(f"CLI wall {wall:.1f} s; launches {launches}")
         for name, count in launches.items():
             require(count > 0, f"the main path never launched {name}")
@@ -3221,6 +3300,7 @@ def run() -> int:
         }
         timings["B1", "device"] = fills["B1"][1]
         timings["B2", "device"] = fills["B2"][1]
+        check_band_cut(errs, timings, bounds, washer_a, spec, dev)
         timings["B5", "device"] = device_ms(lambda: B5(final_seed, occ, org), launches=20)
         for name in ("B1", "B2", "B3", "B5"):
             (ms, plain_ms), dev_ms = timings[name], timings.get((name, "device"))
@@ -3367,6 +3447,8 @@ def run() -> int:
         ("B13b", "B13 fragment_bwd", soft, "voxtpu/ops/soft_vox_pallas.py:88"),
         ("B14", "B14 wq_fill", "voxtpu_torch/csrc/vox_wq.cu",
          "voxtpu/ops/vox_pallas_wq.py:35"),
+        ("C1", "C1 band_cut_counts + band_cut", "voxtpu_torch/csrc/vox_plan.cu",
+         "none (voxtpu's host cut, voxtpu/ops/vox_slots_banded.py:389-448)"),
         (("B13f", "sharded"), "B13 fragment_fwd (sharded, a rank's plan)", soft,
          "voxtpu/parallel/sharded_soft_pallas.py:91"),
         (("B13b", "sharded"), "B13 fragment_bwd (sharded, a rank's plan)", soft,

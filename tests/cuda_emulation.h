@@ -1,6 +1,7 @@
 // A host emulation of the CUDA features that the csrc sources run on
 // the host use (csrc/jfa.cu, jfa_probe.cu, soft_vox.cu, soft_vox_seg.cu,
-// vox_we.cu, vox_fill.cu), for the tests/test_torch_*_emulated.py tests.
+// vox_we.cu, vox_fill.cu, vox_plan.cu), for the
+// tests/test_torch_*_emulated.py tests.
 //
 // A launch runs its clusters one after another (a launch without a
 // cluster size: its blocks, as clusters of one); a cluster's blocks run
@@ -10,11 +11,11 @@
 // hands the thread to the next fiber in turn, so __syncthreads,
 // __syncthreads_or and __any_sync are barriers among a block's fibers,
 // cluster.sync() a barrier among the cluster's, map_shared_rank the same
-// offset in a sibling's buffer, and __syncwarp and the shuffles barriers
-// among a warp's. One OS thread a launch keeps a test's cost the same
-// whatever else loads the machine's cores. A barrier that can never
-// complete (a kernel whose threads diverge around one) aborts with a
-// message instead of hanging. Atomics are std::atomic_ref operations.
+// offset in a sibling's buffer, and __syncwarp, the shuffles and
+// __ballot_sync barriers among a warp's. One OS thread a launch keeps a
+// test's cost the same whatever else loads the machine's cores. A
+// barrier that can never complete (a kernel whose threads diverge around
+// one) aborts with a message instead of hanging. Atomics are std::atomic_ref operations.
 // cp.async copies are queued by the copying thread and land when a wait
 // requires their group (the latest a card may land them). Float
 // operations round to nearest on their own, as __fadd_rn and friends do
@@ -105,6 +106,7 @@ inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline long long __float2ll_rn(float f) { return std::llrintf(f); }  // nearest, ties to even
 inline float __ll2float_rn(long long v) { return (float)v; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 // Streaming loads and stores: plain ones on the host, which also
 // report an address the card would fault on (not a multiple of the
 // access's size) as cudaErrorMisalignedAddress from the launch.
@@ -254,6 +256,19 @@ inline int __any_sync(unsigned, int p) {
 
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_block->warp_bar[emu_tid() / 32]->arrive_and_wait();
+}
+
+// A bit a lane: bit l set where lane l's predicate holds (all must call).
+inline unsigned __ballot_sync(unsigned, int p) {
+  const int w = emu_tid() / 32;
+  const int nt = blockDim.x * blockDim.y * blockDim.z;
+  emu_block->warp_x[w][emu_tid() % 32] = p ? 1 : 0;
+  __syncwarp();
+  unsigned m = 0;
+  for (int l = 0; l < std::min(32, nt - 32 * w); ++l)
+    if (emu_block->warp_x[w][l]) m |= 1u << l;
+  __syncwarp();
+  return m;
 }
 
 // Lane `src`'s value of v, for every lane of the warp (all must call).

@@ -71,6 +71,84 @@ def test_banded_pipeline_kernels_match_plain_and_oracle(dev, name, n, band):
     assert torch.equal(words.cpu(), oracle)
 
 
+def _plan_mesh(name):
+    """The card plan test's meshes: an icosphere, the torus of the fit
+    cells (1,348,128 faces, turned off every axis) and the washer of the
+    benchmark's serving cells (1,348,128 faces; its caps route wide)."""
+    if name == "icosphere":
+        return _mesh(lambda: procedural.icosphere(4, center=(0.1, -0.2, 0.3)), name)
+    if name == "torus":
+        c, f = procedural.subdivide_to(*procedural.torus(1.0, 0.35, 48, 24), 1_348_128)
+        ax, ay, az = 0.3, 0.5, 0.7
+        rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)], [0, np.sin(ax), np.cos(ax)]])
+        ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0], [-np.sin(ay), 0, np.cos(ay)]])
+        rz = np.array([[np.cos(az), -np.sin(az), 0], [np.sin(az), np.cos(az), 0], [0, 0, 1]])
+        c = (c.astype(np.float64) @ (rz @ ry @ rx).T).astype(np.float32)
+        return _mesh(lambda: (c, f), name)
+    return _mesh(lambda: procedural.subdivide_to(
+        *procedural.washer(0.85, 1.0, 0.16, nu=64), 1_348_128), name)
+
+
+def _plan_arrays(pipe) -> dict:
+    st = pipe.state
+    out = {f"rows{i}": r for i, r in enumerate(st.rows)}
+    out.update(local=st.local, batch_tile=st.batch_tile, batch_basew=st.batch_basew)
+    layouts = [("layout", st.layout)]
+    if st.wide is not None:
+        out.update({f"wide_rows{i}": r for i, r in enumerate(st.wide[0])})
+        out.update({f"wide{i}": a for i, a in enumerate(st.wide[1:])})
+        layouts.append(("wide_layout", st.wide_layout))
+    for key, lay in layouts:
+        out.update({f"{key}.start": lay.start, f"{key}.order": lay.order,
+                    f"{key}.sizes": torch.tensor([lay.nbusy, lay.cluster])})
+    out["counters"] = torch.tensor([pipe.num_candidates, pipe.num_slots, pipe.num_batches,
+                                    pipe.num_wide])
+    return {k: v.cpu() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("name,n,band", [("icosphere", 128, 64), ("torus", 512, 256),
+                                         ("washer", 512, 256)])
+def test_plan_on_the_card_equals_the_plan_on_the_cpu(dev, name, n, band):
+    """The serving plan built on the card (torch ops and the band cut's
+    kernel) equals the plan built on the CPU (the same ops and the cut's
+    plain version), array for array and bit for bit; three host reads,
+    the spans' CUDA events recorded, and the card's grid the CPU plan's
+    grid on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from voxtpu_torch.utils import trace as tr
+
+    mesh = _plan_mesh(name)
+    spec = GridSpec.fit(mesh.coords, n)
+    cut = (vox_slots_banded.band_cut_counts.launches, vox_slots_banded.band_cut.launches)
+    tr.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        card = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, dev, band=band)
+    records = [r for r in tr.recorded() if r.name.startswith("vox.plan.")]
+    tr.clear()
+    assert (vox_slots_banded.band_cut_counts.launches,
+            vox_slots_banded.band_cut.launches) == (cut[0] + 1, cut[1] + 1)
+    assert len(records) == 4 and all(r.device_ms is not None for r in records)
+    assert sum(r.counts.get("syncs", 0) for r in records) == 3
+    host = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, "cpu", band=band)
+    got, want = _plan_arrays(card), _plan_arrays(host)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+    assert (card.num_wide > 0) == (name != "torus")
+    words, overflow = card.words()
+    host.state = vox_slots_banded.BandedState(
+        rows=tuple(r.to(dev) for r in host.state.rows), local=host.state.local.to(dev),
+        batch_tile=host.state.batch_tile.to(dev), batch_basew=host.state.batch_basew.to(dev),
+        wide=None if host.state.wide is None else (
+            tuple(r.to(dev) for r in host.state.wide[0]),
+            *(a.to(dev) for a in host.state.wide[1:])))
+    host_words, host_overflow = vox_slots_banded.banded_total(
+        host.state, spec.origin_tensor(dev), spec.voxel_size_tensor(dev), n=n, tc=host.tc,
+        band=host.band)
+    assert int(overflow) == 0 == int(host_overflow) and torch.equal(words, host_words)
+
+
 @pytest.mark.parametrize("n,tc,tiles", [(64, 128, 3), (512, 128, 4), (4096, 128, 2)])
 def test_wide_fill_kernel_matches_plain(dev, n, tc, tiles):
     g = torch.Generator().manual_seed(n)

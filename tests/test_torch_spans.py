@@ -106,8 +106,30 @@ def test_banded_plan_records_its_four_phases(shape, band):
     assert all(r.parent is None for r in records)
     for a, b in zip(records, records[1:]):
         assert a.t0 <= a.t1 <= b.t0 <= b.t1
-    assert records[0].counts == {"candidates": pipe.num_candidates}
-    assert records[2].counts == {"batches": pipe.num_batches, "wide": pipe.num_wide}
+    # What crosses between host and device: the mesh, the grid's three
+    # scalars (24 bytes) and three reads (the candidate total; the batch
+    # total with each tile's wide count; the batches' tiles and bases) on
+    # the way; the layouts' tile lists and the wide batches' arrays on the
+    # way down. Nothing that grows with the candidates or the slots.
+    st, num_tiles = pipe.state, pipe.num_tiles
+    mesh_bytes = mesh.coords.nbytes + mesh.faces.nbytes
+    assert records[0].counts == {"candidates": pipe.num_candidates,
+                                 "host_bytes": mesh_bytes + 24 + 8, "syncs": 1}
+    assert records[1].counts == {}
+    assert records[2].counts == {"batches": pipe.num_batches, "wide": pipe.num_wide,
+                                 "host_bytes": 8 * (num_tiles + 1) + 8 * st.batch_tile.shape[0],
+                                 "syncs": 2}
+
+    def layout_bytes(lay):
+        return lay.start.nbytes + lay.order.nbytes
+
+    down = layout_bytes(st.layout)
+    if st.wide is not None:
+        w_rtile, w_ctile, w_uidx = st.wide[2:]
+        down += (16 * w_ctile.shape[0] + w_rtile.nbytes + w_ctile.nbytes + w_uidx.nbytes
+                 + layout_bytes(st.wide_layout))
+    assert records[3].counts == {"host_bytes": down}
+    assert sum(r.counts.get("syncs", 0) for r in records) == 3
     assert (pipe.num_wide > 0) == (shape == "icosahedron")
     # The spans change nothing of the plan or its grid.
     ref = BandedSlotVoxPipeline(mesh, spec, "cpu", band=band)

@@ -86,6 +86,11 @@ SIGNATURES = {
     "vt_wq_fill": [_P] * 6 + [_I] * 5 + [_P, _P],
     # seed, out, org, n, k, variant, stream
     "vt_flood_probe": [_P, _P, _P, _I, _I, _I, _P],
+    # xlo, xhi, tbounds, counts, num_tiles, n, band, tb, stream
+    "vt_band_cut_counts": [_P] * 4 + [_I] * 4 + [_P],
+    # xlo, xhi, tbounds, off, pads, batch_tile, batch_base, start, end,
+    # num_tiles, n, band, tb, stream
+    "vt_band_cut": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

@@ -75,26 +75,28 @@ def _batch_index(starts: np.ndarray, ends: np.ndarray, values, tb: int,
     return np.where(in_range, values[idx_c] if total else fill, fill)
 
 
-def _slot_rows(tri_b: np.ndarray, local_b: np.ndarray, v0, v1, v2,
-               tb_sub: int, device):
-    """Per-slot triangle coordinates on `device`.
+def _vertex_rows(tri3: torch.Tensor) -> torch.Tensor:
+    """(F, 9) float32 vertex rows a0 a1 a2 b0 b1 b2 c0 c1 c2 of (F, 3, 3)
+    triangle vertices, on their device; one zero row for an empty mesh
+    (its pad slots gather it)."""
+    if tri3.shape[0] == 0:
+        return torch.zeros((1, 9), dtype=torch.float32, device=tri3.device)
+    return tri3.reshape(-1, 9)
 
-    `tri_b`/`local_b` are (bcount, tb) host layouts (-1 local = pad).
-    Returns (rows, local): nine contiguous (B, tb_sub, 128) float32
-    tensors (a0 a1 a2 b0 b1 b2 c0 c1 c2), gathered on the device, and
-    the int32 local-cell tensor."""
+
+def _slot_rows(tri_b: torch.Tensor, local_b: torch.Tensor, tri9: torch.Tensor,
+               tb_sub: int):
+    """Per-slot triangle coordinates, gathered on the device.
+
+    `tri_b`/`local_b` are (bcount, tb) layouts (-1 local = pad) and
+    `tri9` the `_vertex_rows`, on one device. Returns (rows, local):
+    nine contiguous (B, tb_sub, 128) float32 tensors (a0 a1 a2 b0 b1 b2
+    c0 c1 c2) and the int32 local-cell tensor."""
     bcount = tri_b.shape[0]
-    if len(v0) == 0:  # empty mesh: one degenerate row for pad slots
-        v0 = v1 = v2 = np.zeros((1, 3), np.float32)
-    tri9 = torch.from_numpy(
-        np.concatenate([v0, v1, v2], axis=1).astype(np.float32)).to(device)
-    idx = torch.from_numpy(tri_b.reshape(-1).astype(np.int64)).to(device)
-    slot = tri9[idx]  # (B * tb, 9)
+    slot = tri9[tri_b.reshape(-1).long()]  # (B * tb, 9)
     rows = tuple(slot[:, i].reshape(bcount, tb_sub, TB_LANE).contiguous()
                  for i in range(9))
-    local = torch.from_numpy(
-        local_b.astype(np.int32).reshape(bcount, tb_sub, TB_LANE)).to(device)
-    return rows, local
+    return rows, local_b.to(torch.int32).reshape(bcount, tb_sub, TB_LANE).contiguous()
 
 
 def _slot_emit(rows, local: torch.Tensor, batch_tile: torch.Tensor,
@@ -180,13 +182,15 @@ class SlotVoxPipeline:
         flags, tile_mask = tile_flags(bounds, batch_tiles)
         self.num_batches = len(batch_tiles)
         self.num_slots = self.num_batches * tb
-        self.rows, self.local = _slot_rows(
-            _batch_index(starts, ends, tri, tb, 0), _batch_index(starts, ends, local, tb, -1),
-            v0, v1, v2, tb_sub, device)
-        self.device = self.local.device
+        self.device = torch.empty(0, device=device).device
 
         def dev32(a):
             return torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.device)
+
+        tri3 = torch.from_numpy(np.stack([v0, v1, v2], axis=1)).to(self.device)
+        self.rows, self.local = _slot_rows(dev32(_batch_index(starts, ends, tri, tb, 0)),
+                                           dev32(_batch_index(starts, ends, local, tb, -1)),
+                                           _vertex_rows(tri3), tb_sub)
 
         self.batch_tile = dev32(batch_tiles)
         self.flags = dev32(flags)

@@ -1,7 +1,7 @@
 """Banded static-slot voxelizer — the main path (mesh -> packed grid).
 
 Port of `voxtpu/ops/vox_slots_banded.py`, the pipeline voxtpu's
-benchmark headlines (`bench.py:499-552`). The host plan is the same:
+benchmark headlines (`bench.py:499-552`). The plan is voxtpu's:
 each candidate cell's x entry is one point (the plane intersection at
 the cell's center), evaluated in f64 and widened by the f32 error
 bound into a window a few cells wide; slots sort by (YZ tile, window
@@ -29,6 +29,18 @@ needed: the CUDA kernel takes per-slot (local cell, x) and per-batch
 each tile's batch range and cluster size (`FillLayout`), which the plan
 builds once. The supertile group size survives only as the unit of the
 PACK padding, so that the batch layout stays voxtpu's.
+
+The plan is built on the plan's device, not on the host: the mesh goes
+up once, and the candidates, their x windows, the (tile, window start)
+sort and the slot gathers are torch ops there, with the float32 and
+float64 terms of voxtpu's NumPy plan one op each (no fused op, every
+divisor a device tensor), so the arrays are voxtpu's bit for bit. The
+greedy cut, the one sequential step, is kernel `csrc/vox_plan.cu`
+(`band_cut_counts`, `band_cut`), which replaces voxtpu's host loop.
+What crosses between host and device is the mesh, three scalars, the
+candidate and batch totals, the per-tile wide counts and the per-batch
+arrays (the `vox.plan.*` spans count `host_bytes` and `syncs`); a CPU
+device runs the same code with the cut's plain version.
 """
 
 from __future__ import annotations
@@ -43,11 +55,10 @@ from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS,
                                        FillLayout, _check_range, fill_rows,
-                                       _check_slots, _group_factor, _layout,
-                                       fill_layout, suffix_parity_words,
+                                       _check_slots, _gather_batches, _group_factor,
+                                       _layout, fill_layout, suffix_parity_words,
                                        tile_batches, wide_fill_into)
-from voxtpu_torch.ops.vox_slots import (_batch_index, _exact_candidates,
-                                        _slot_emit, _slot_rows)
+from voxtpu_torch.ops.vox_slots import _slot_emit, _slot_rows, _vertex_rows
 from voxtpu_torch.utils.trace import span
 
 # Fill window columns (multiple of 32; >= 32 + 2*ceil(err) + 1).
@@ -169,115 +180,233 @@ def banded_total(state: BandedState, origin: torch.Tensor, vs: torch.Tensor,
     return words, overflow
 
 
-def _candidate_x_windows(tri, cell, v0, v1, v2, spec: GridSpec):
-    """Per-candidate x-entry cell windows [xlo, xhi] (inclusive)
-    (`vox_slots_banded.py:273-329`).
+def _read(sp, t: torch.Tensor) -> np.ndarray:
+    """A host copy of the device values `t`: a sync, counted on the span
+    `sp` with its bytes."""
+    a = t.cpu().numpy()
+    sp.count("syncs")
+    sp.count("host_bytes", a.nbytes)
+    return a
 
-    The host evaluates each candidate's plane intersection in f64 and
-    widens it by max(1, ceil(err)) cells, err the per-triangle f32
-    evaluation error bound, ~eps * (|D| + |B cy| + |C cz|) / |A| cells
-    with a 4x safety. Only x-degenerate planes (A ~ 0) get windows too
-    wide for a band; A == 0 gives err = inf (wide; invalid at emit)."""
+
+def _upload(sp, a, device, dtype=None) -> torch.Tensor:
+    """Host values on `device` (as `dtype`), their bytes counted on the
+    span `sp`. Made while nothing is queued on the device: an upload
+    from pageable memory waits for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    sp.count("host_bytes", t.nbytes)
+    return t
+
+
+def _candidate_counts(tri3: torch.Tensor, origin: torch.Tensor, vs: torch.Tensor, n: int):
+    """Every triangle's exact y/z bounding-box rectangle of candidate
+    cells (`vox_slots._exact_candidates` on `vox._triangle_windows`'
+    starts, term for term in float32): (start (F, 2) int64 first y, z
+    cell, w (F, 2) int64 its widths, counts (F,) int64 = wy * wz).
+    `tri3` is (F, 3, 3) float32 vertex rows, `origin` (3,) and `vs` ()
+    float32 on its device."""
+    yz = tri3[:, :, 1:]
+    o = origin[1:]
+    start = torch.floor((yz.amin(1) - o) / vs).to(torch.int32).clamp(0, n).long()
+    end = torch.ceil((yz.amax(1) - o) / vs).to(torch.int64).clamp(0, n)
+    w = (end - start).clamp(min=0)
+    return start, w, w[:, 0] * w[:, 1]
+
+
+def _expand_candidates(start, w, counts, total: int, n: int):
+    """The candidates of `_candidate_counts`' rectangles, triangle by
+    triangle, each rectangle y fastest: (face (total,) int64 the owning
+    triangle, cell (total,) int64 = z * n + y)."""
+    face = torch.repeat_interleave(counts, output_size=total)
+    offs = torch.arange(total, device=counts.device) - (torch.cumsum(counts, 0) - counts)[face]
+    wy = w[face, 0]
+    cell = (start[face, 1] + offs // wy) * n + start[face, 0] + offs % wy
+    return face, cell
+
+
+def _x_windows(tri3: torch.Tensor, face, cell, vs64: torch.Tensor, spec: GridSpec):
+    """Per-candidate x-entry cell windows [xlo, xhi] (inclusive) (int64;
+    `vox_slots_banded.py:273-329`, voxtpu's NumPy float64 in the same
+    order of operations, one torch op each).
+
+    Each candidate's plane intersection at its cell's center, widened by
+    max(1, ceil(err)) cells, err the per-triangle f32 evaluation error
+    bound, ~eps * (|D| + |B cy| + |C cz|) / |A| cells with a 4x safety.
+    Only x-degenerate planes (A ~ 0) get windows too wide for a band;
+    A == 0 gives err = inf (wide; invalid at emit). `vs64` is the voxel
+    size as a float64 tensor on the device: PyTorch divides by a host
+    scalar as a product with its reciprocal, which rounds otherwise."""
     n = spec.n
-    ox = np.float64(spec.origin[0])
-    oy = np.float64(spec.origin[1])
-    oz = np.float64(spec.origin[2])
-    vs = np.float64(spec.voxel_size)
-    f0, f1, f2 = (np.asarray(v, np.float64) for v in (v0, v1, v2))
-    u = f1 - f0
-    t = f2 - f0
+    ox, oy, oz = (float(v) for v in spec.origin)
+    vs = float(spec.voxel_size)
+    f = tri3.double()
+    f0 = f[:, 0]
+    u = f[:, 1] - f0
+    t = f[:, 2] - f0
     A = u[:, 1] * t[:, 2] - u[:, 2] * t[:, 1]
     B = u[:, 2] * t[:, 0] - u[:, 0] * t[:, 2]
     C = u[:, 0] * t[:, 1] - u[:, 1] * t[:, 0]
     D = A * f0[:, 0] + B * f0[:, 1] + C * f0[:, 2]
+    del f, f0, u, t
     cyb = max(abs(oy), abs(oy + n * vs))
     czb = max(abs(oz), abs(oz + n * vs))
-    num = np.abs(D) + np.abs(B) * cyb + np.abs(C) * czb
-    with np.errstate(divide="ignore", invalid="ignore"):
-        err_cells = np.where(
-            A == 0.0, np.inf,
-            8e-7 * num / np.maximum(np.abs(A), 1e-300) / vs)
-    margin = np.maximum(
-        1, np.ceil(np.minimum(err_cells, n)).astype(np.int64))
+    num = D.abs() + B.abs() * cyb + C.abs() * czb
+    err = torch.where(A == 0.0, float("inf"), 8e-7 * num / A.abs().clamp(min=1e-300) / vs64)
+    margin = torch.ceil(err.clamp(max=float(n))).to(torch.int64).clamp(min=1)
+    del num, err
 
-    ys = (cell % n).astype(np.float64)
-    zs = (cell // n).astype(np.float64)
-    cy = oy + (ys * vs + vs / 2)
-    cz = oz + (zs * vs + vs / 2)
-    At, Bt, Ct, Dt = A[tri], B[tri], C[tri], D[tri]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        xf = ((Dt - Bt * cy - Ct * cz) / At - ox) / vs
-    xcell = np.where(np.isfinite(xf),
-                     np.floor(np.clip(xf, -1.0, float(n))), 0.0)
-    xcell = xcell.astype(np.int64)
-    mt = margin[tri]
-    xlo = np.clip(xcell - mt, 0, n - 1)
-    xhi = np.clip(xcell + mt, 0, n - 1)
-    return xlo, xhi
+    cy = (cell % n).double() * vs + vs / 2 + oy
+    cz = (cell // n).double() * vs + vs / 2 + oz
+    xf = D[face]
+    xf -= B[face] * cy
+    del cy
+    xf -= C[face] * cz
+    del cz
+    xf /= A[face]
+    xf -= ox
+    xf /= vs64
+    xcell = torch.where(torch.isfinite(xf), torch.floor(xf.clamp(-1.0, float(n))), 0.0)
+    del xf
+    xcell = xcell.to(torch.int64)
+    mt = margin[face]
+    return (xcell - mt).clamp(0, n - 1), (xcell + mt).clamp(0, n - 1)
 
 
-def _narrow_batches(c_n, t_n, xlo_n, xhi_n, *, n: int, tc: int, band: int,
-                    tb: int, g: int, num_tiles: int):
-    """The narrow candidates' batches (`vox_slots_banded.py:389-448`):
-    slots sorted by (tile, window start), greedy cuts of up to `tb`
-    consecutive slots whose windows fit one band from the first slot's
-    aligned base, every group of `g` tiles padded to a multiple of PACK
-    with inert batches (start == end). Returns (batch_tile, batch_base,
-    local_b, tri_b), int64 tiles and bases and the (B, tb) slot arrays."""
-    order = np.lexsort((xlo_n, c_n // tc)) if len(t_n) else \
-        np.zeros((0,), np.int64)
-    c_n, t_n = c_n[order], t_n[order]
-    local_n = (c_n % tc).astype(np.int32)
-    xlo_s = xlo_n[order]
-    xhi_s = xhi_n[order]
-    tile_s = (c_n // tc).astype(np.int64)
-    tbounds = np.searchsorted(tile_s,
-                              np.arange(num_tiles + 1, dtype=np.int64))
-    batch_tile, batch_base, starts, ends = [], [], [], []
-    for t in np.nonzero(np.diff(tbounds))[0]:
-        i, b1 = int(tbounds[t]), int(tbounds[t + 1])
-        while i < b1:
-            base = min((int(xlo_s[i]) // WORD_BITS) * WORD_BITS, n - band)
-            w_end = min(i + tb, b1)
-            viol = xhi_s[i:w_end] >= base + band
-            k0 = i + int(np.argmax(viol)) if viol.any() else w_end
-            batch_tile.append(int(t))
-            batch_base.append(base)
-            starts.append(i)
-            ends.append(k0)
-            i = k0
-    if not batch_tile:  # empty narrow set: one inert batch on tile 0
-        batch_tile, batch_base, starts, ends = [0], [0], [0], [0]
+def _cut_tile(xlo, xhi, i: int, b1: int, *, n: int, band: int, tb: int):
+    """The greedy cut of one tile's sorted slots [i, b1) (host arrays):
+    yields each batch's (base, start, end) (`vox_slots_banded.py:
+    389-448`). A batch takes up to `tb` consecutive slots whose windows
+    fit one band from its first slot's 32-aligned base; the first slot
+    always fits (a narrow candidate's window fits the band from its own
+    base), so the search for the first that does not starts after it."""
+    while i < b1:
+        base = min((int(xlo[i]) // WORD_BITS) * WORD_BITS, n - band)
+        w_end = min(i + tb, b1)
+        viol = np.flatnonzero(xhi[i + 1:w_end] >= base + band)
+        end = i + 1 + int(viol[0]) if len(viol) else w_end
+        yield base, i, end
+        i = end
 
-    bt2, bb2, st2, en2 = [], [], [], []
-    i = 0
-    while i < len(batch_tile):
-        j = i
-        while j < len(batch_tile) and batch_tile[j] // g == \
-                batch_tile[i] // g:
-            j += 1
-        bt2 += batch_tile[i:j]
-        bb2 += batch_base[i:j]
-        st2 += starts[i:j]
-        en2 += ends[i:j]
-        for _ in range((-(j - i)) % PACK):
-            bt2.append(batch_tile[j - 1])
-            bb2.append(batch_base[j - 1])
-            st2.append(0)
-            en2.append(0)
-        i = j
-    starts = np.asarray(st2, np.int64)
-    ends = np.asarray(en2, np.int64)
-    return (np.asarray(bt2, np.int64), np.asarray(bb2, np.int64),
-            _batch_index(starts, ends, local_n, tb, -1),
-            _batch_index(starts, ends, t_n, tb, 0))
+
+def band_cut_counts_plain(xlo, xhi, tbounds, *, n: int, band: int, tb: int) -> torch.Tensor:
+    """Plain version of the cut's first pass (CPU tensors): voxtpu's
+    per-tile loop, counting each tile's batches."""
+    xl, xh, bounds = (a.numpy() for a in (xlo, xhi, tbounds))
+    counts = np.zeros(len(bounds) - 1, np.int32)
+    for t in np.flatnonzero(np.diff(bounds)):
+        counts[t] = sum(1 for _ in _cut_tile(xl, xh, int(bounds[t]), int(bounds[t + 1]),
+                                             n=n, band=band, tb=tb))
+    return torch.from_numpy(counts)
+
+
+def band_cut_plain(xlo, xhi, tbounds, off, pads, *, total: int, n: int, band: int,
+                   tb: int):
+    """Plain version of the cut's second pass (CPU tensors): voxtpu's
+    per-tile loop, writing each batch at its tile's offset and the
+    tile's pad batches after it."""
+    xl, xh, bounds, off, pads = (a.numpy() for a in (xlo, xhi, tbounds, off, pads))
+    out = np.zeros((4, total), np.int32)
+    for t in np.flatnonzero(np.diff(bounds)):
+        k = int(off[t])
+        for base, i, end in _cut_tile(xl, xh, int(bounds[t]), int(bounds[t + 1]), n=n,
+                                      band=band, tb=tb):
+            out[:, k] = (t, base, i, end)
+            k += 1
+        out[:2, k:k + pads[t]] = np.array([[t], [base]])
+    return tuple(torch.from_numpy(a) for a in out)
+
+
+def _check_cut(xlo, xhi, tbounds, *, n: int, band: int, tb: int) -> int:
+    _build.expect(xlo, "xlo", torch.int32, (None,))
+    _build.expect(xhi, "xhi", torch.int32, tuple(xlo.shape))
+    _build.expect(tbounds, "tbounds", torch.int32, (None,))
+    if tbounds.shape[0] < 1 or tb < 1 or band % WORD_BITS or not 0 < band <= n:
+        raise ValueError(f"need tile bounds, tb >= 1 and a band of 32-multiples up to N "
+                         f"(n={n}, band={band}, tb={tb})")
+    if xlo.shape[0] + max(tb, 1024) >= 2 ** 31:
+        raise ValueError(f"{xlo.shape[0]} slots: the cut indexes them in 32 bits")
+    return tbounds.shape[0] - 1
+
+
+def band_cut_counts(xlo: torch.Tensor, xhi: torch.Tensor, tbounds: torch.Tensor, *,
+                    n: int, band: int, tb: int) -> torch.Tensor:
+    """The greedy band cut's first pass -> (num_tiles,) int32 batches a
+    tile. Slots are (C,) int32 x windows [xlo, xhi] sorted by (tile,
+    xlo); tile t's are [tbounds[t], tbounds[t + 1]) ((num_tiles + 1,)
+    int32), each narrow (its window fits the band from its own base).
+
+    Replaces no TPU kernel: voxtpu's host cut (`vox_slots_banded.py:
+    389-448`). A CPU tensor takes the plain version, a CUDA tensor
+    launches `csrc/vox_plan.cu::vt_band_cut_counts`."""
+    num_tiles = _check_cut(xlo, xhi, tbounds, n=n, band=band, tb=tb)
+    if not _build.on_cuda(xlo, xhi, tbounds):
+        return band_cut_counts_plain(xlo, xhi, tbounds, n=n, band=band, tb=tb)
+    counts = torch.empty(num_tiles, dtype=torch.int32, device=xlo.device)
+    _build.launch("vt_band_cut_counts", xlo.data_ptr(), xhi.data_ptr(), tbounds.data_ptr(),
+                  counts.data_ptr(), num_tiles, n, band, tb, _build.stream_of(counts))
+    band_cut_counts.launches += 1
+    return counts
+
+
+band_cut_counts.launches = 0
+
+
+def band_cut(xlo: torch.Tensor, xhi: torch.Tensor, tbounds: torch.Tensor,
+             off: torch.Tensor, pads: torch.Tensor, *, total: int, n: int, band: int,
+             tb: int):
+    """The greedy band cut's second pass -> (batch_tile, batch_base,
+    start, end), each (total,) int32: tile t's batches from `off[t]` on,
+    then `pads[t]` inert batches (tile t, its last base, start == end ==
+    0) ((num_tiles,) int32 each, `_pack_runs`). Slots as in
+    `band_cut_counts`.
+
+    A CPU tensor takes the plain version, a CUDA tensor launches
+    `csrc/vox_plan.cu::vt_band_cut`."""
+    num_tiles = _check_cut(xlo, xhi, tbounds, n=n, band=band, tb=tb)
+    _build.expect(off, "off", torch.int32, (num_tiles,))
+    _build.expect(pads, "pads", torch.int32, (num_tiles,))
+    if not _build.on_cuda(xlo, xhi, tbounds, off, pads):
+        return band_cut_plain(xlo, xhi, tbounds, off, pads, total=total, n=n, band=band,
+                              tb=tb)
+    out = torch.empty((4, total), dtype=torch.int32, device=xlo.device)
+    _build.launch("vt_band_cut", xlo.data_ptr(), xhi.data_ptr(), tbounds.data_ptr(),
+                  off.data_ptr(), pads.data_ptr(), *(r.data_ptr() for r in out), num_tiles,
+                  n, band, tb, _build.stream_of(out))
+    band_cut.launches += 1
+    return tuple(out)
+
+
+band_cut.launches = 0
+
+
+def _pack_runs(counts: torch.Tensor, g: int, pack: int):
+    """Where each tile's batches go (`vox_slots_banded.py:404-425`):
+    every group of `g` tiles' run of batches padded to a multiple of
+    `pack` by inert batches after the group's last busy tile -> (off
+    (num_tiles,) int32 each tile's first batch, pads (num_tiles,) int32
+    the pad batches after it, total () int64)."""
+    c = counts.long().view(-1, g)
+    pad = torch.remainder(-c.sum(1), pack)
+    col = torch.arange(g, device=c.device)
+    last = torch.where(c > 0, col, -1).amax(1).clamp(min=0)
+    pads = torch.zeros_like(c).scatter_(1, last[:, None], pad[:, None])
+    per = (c + pads).view(-1)
+    return (torch.cumsum(per, 0) - per).int(), pads.view(-1).int(), per.sum()
 
 
 class BandedSlotVoxPipeline:
     """Whole-pipeline voxelizer with a static (tile, x-band) slot layout,
-    built once on the host for one (mesh, grid) pair; each call is the
-    emit plus the fill kernels on `device`. `overflow` > 0 from a call
-    means fragments left their baked bands (vertex drift); rebuild."""
+    built once on `device` for one (mesh, grid) pair; each call is the
+    emit plus the fill kernels there. `overflow` > 0 from a call means
+    fragments left their baked bands (vertex drift); rebuild.
+
+    The plan's phases are the spans `vox.plan.candidates`, `.windows`,
+    `.batches` and `.upload` (`utils/trace.py`), each with its CUDA
+    events on a card and its `host_bytes` and `syncs` counted: three host
+    reads a plan (the candidate total; the batch total with the per-tile
+    wide counts; the batch tiles and bases, for the checks and the
+    `FillLayout`s). The device work queued in a phase shows on the host
+    clock in the first phase that reads."""
 
     tb_sub = TB_SUB  # voxtpu's slot layout, read by the tests
     pack = PACK
@@ -300,80 +429,100 @@ class BandedSlotVoxPipeline:
         num_tiles = (n * n) // tc
         self.num_tiles = num_tiles
         g = _group_factor(nw, num_tiles)  # voxtpu pads each group to PACK
+        dev = self.device = torch.empty(0, device=device).device
 
-        with span("vox.plan.candidates") as sp:
-            tri, cell, v0, v1, v2 = _exact_candidates(mesh, spec)
-            self.num_candidates = cell.shape[0]
-            sp.count("candidates", self.num_candidates)
+        with span("vox.plan.candidates", dev) as sp:
+            coords = _upload(sp, mesh.coords, dev, np.float32)
+            faces = _upload(sp, mesh.faces, dev, np.int32)
+            # The grid's geometry on the device, made once: a tensor made
+            # from host values copies them synchronously, which waits for
+            # the card.
+            self._origin = spec.origin_tensor(dev)
+            self._voxel_size = spec.voxel_size_tensor(dev)
+            vs64 = torch.tensor(spec.voxel_size, dtype=torch.float64, device=dev)
+            sp.count("host_bytes", 3 * 4 + 4 + 8)
+            tri3 = coords[faces.long()]  # (F, 3, 3)
+            start, w, counts = _candidate_counts(tri3, self._origin, self._voxel_size, n)
+            total = int(_read(sp, counts.sum()))
+            face, cell = _expand_candidates(start, w, counts, total, n)
+            self.num_candidates = total
+            sp.count("candidates", total)
 
-        with span("vox.plan.windows"):
-            xlo_c, xhi_c = _candidate_x_windows(tri, cell, v0, v1, v2, spec)
+        with span("vox.plan.windows", dev):
+            xlo, xhi = _x_windows(tri3, face, cell, vs64, spec)
             # A batch's band starts at its first slot's 32-aligned window
             # base, so a candidate is narrow iff its window fits a band
-            # from that base.
-            base_c = np.minimum((xlo_c // WORD_BITS) * WORD_BITS, n - band)
-            narrow = xhi_c < base_c + band
-            c_n, t_n = cell[narrow], tri[narrow]
-            c_w, t_w = cell[~narrow], tri[~narrow]
-            xlo_n, xhi_n = xlo_c[narrow], xhi_c[narrow]
-            self.num_wide = c_w.shape[0]
+            # from that base. One key sorts the narrow candidates by
+            # (tile, window start) and the wide ones after them by tile.
+            narrow = xhi < ((xlo // WORD_BITS) * WORD_BITS).clamp(max=n - band) + band
+            tile = cell // tc
+            key = torch.where(narrow, tile * n + xlo, tile + num_tiles * n)
+            del narrow, tile
 
-        with span("vox.plan.batches") as sp:
-            batch_tile, batch_base, local_b, tri_b = _narrow_batches(
-                c_n, t_n, xlo_n, xhi_n, n=n, tc=tc, band=band, tb=tb, g=g,
-                num_tiles=num_tiles)
-            self.num_batches = len(batch_tile)
-            self.num_slots = self.num_batches * tb
-            _check_range(batch_tile, "batch_tile", 0, num_tiles)
-            _check_range(batch_base // WORD_BITS, "batch_basew", 0,
+        with span("vox.plan.batches", dev) as sp:
+            key, order = torch.sort(key, stable=True)
+            xlo, xhi = xlo[order].int(), xhi[order].int()
+            local = (cell[order] % tc).int()
+            tri = face[order].int()
+            del order, cell, face
+            probes = torch.arange(num_tiles + 1, dtype=key.dtype, device=dev)
+            tbounds = torch.searchsorted(key, probes * n, out_int32=True)
+            wbounds = torch.searchsorted(key, probes + num_tiles * n)
+            counts = band_cut_counts(xlo, xhi, tbounds, n=n, band=band, tb=tb)
+            off, pads, nb = _pack_runs(counts, g, PACK)
+            got = _read(sp, torch.cat([nb.view(1), wbounds.diff()]))
+            nb, w_counts = int(got[0]), got[1:]
+            if nb:
+                batch_tile, batch_base, starts, ends = band_cut(
+                    xlo, xhi, tbounds, off, pads, total=nb, n=n, band=band, tb=tb)
+            else:  # empty narrow set: one inert batch on tile 0, padded
+                nb = 1 + (-1) % PACK
+                batch_tile, batch_base, starts, ends = torch.zeros(
+                    (4, nb), dtype=torch.int32, device=dev)
+            bt_host, base_host = _read(sp, torch.stack([batch_tile, batch_base]))
+            self.num_batches = nb
+            self.num_slots = nb * tb
+            _check_range(bt_host, "batch_tile", 0, num_tiles)
+            _check_range(base_host // WORD_BITS, "batch_basew", 0,
                          (n - band) // WORD_BITS + 1)
             # Wide fallback: whole-axis batches over a compact tile set
             # (the wide candidates touch k << num_tiles tiles).
+            self.num_wide = int(w_counts.sum())
             if self.num_wide:
-                orderw = np.argsort(c_w // tc, kind="stable")
-                c_w, t_w = c_w[orderw], t_w[orderw]
-                local_w = (c_w % tc).astype(np.int32)
-                tiles_w = c_w // tc
-                uidx = np.unique(tiles_w)
+                uidx = np.flatnonzero(w_counts)
                 k = len(uidx)
-                compact_w = np.searchsorted(uidx, tiles_w)
-                bw = np.searchsorted(compact_w, np.arange(k + 1, dtype=np.int64))
+                bw = np.concatenate([[0], np.cumsum(w_counts[uidx])])
                 w_ctiles, w_starts, w_ends = tile_batches(bw, tb)
-                w_local_b = _batch_index(w_starts, w_ends, local_w, tb, -1)
-                w_tri_b = _batch_index(w_starts, w_ends, t_w, tb, 0)
                 _check_range(w_ctiles, "w_ctile", 0, k)
                 self.num_batches += len(w_ctiles)
             sp.count("batches", self.num_batches)
             sp.count("wide", self.num_wide)
 
-        with span("vox.plan.upload"):
-            rows, local = _slot_rows(tri_b, local_b, v0, v1, v2, TB_SUB, device)
-            self.device = local.device
-
-            def dev32(a):
-                return torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.device)
-
+        with span("vox.plan.upload", dev) as sp:
+            # The uploads first, while nothing is queued; then the slot
+            # gathers on the device.
+            layout = fill_layout(bt_host, num_tiles, dev, nw=nw, tc=tc)
+            sp.count("host_bytes", layout.start.nbytes + layout.order.nbytes)
             wide, wide_layout = None, None
             if self.num_wide:
-                w_rows, w_local = _slot_rows(w_tri_b, w_local_b, v0, v1, v2,
-                                             TB_SUB, device)
-                wide = (w_rows, w_local, dev32(uidx[w_ctiles]), dev32(w_ctiles),
-                        dev32(uidx))
-                wide_layout = fill_layout(w_ctiles, k, self.device, nw=nw, tc=tc,
-                                          name="w_ctile")
-
-            # The grid's geometry on the device, made once: a tensor made
-            # from host values copies them synchronously, which waits for
-            # the card.
-            self._origin = spec.origin_tensor(self.device)
-            self._voxel_size = spec.voxel_size_tensor(self.device)
-            self.state = BandedState(rows=rows, local=local,
-                                     batch_tile=dev32(batch_tile),
-                                     batch_basew=dev32(batch_base // WORD_BITS),
-                                     wide=wide,
-                                     layout=fill_layout(batch_tile, num_tiles, self.device,
-                                                        nw=nw, tc=tc),
-                                     wide_layout=wide_layout)
+                ws, we = (_upload(sp, a, dev, np.int64) for a in (w_starts, w_ends))
+                w_maps = [_upload(sp, a, dev, np.int32) for a in (uidx[w_ctiles], w_ctiles,
+                                                                  uidx)]
+                wide_layout = fill_layout(w_ctiles, k, dev, nw=nw, tc=tc, name="w_ctile")
+                sp.count("host_bytes", wide_layout.start.nbytes + wide_layout.order.nbytes)
+            tri9 = _vertex_rows(tri3)
+            rows, local_b = _slot_rows(_gather_batches(tri, starts, ends, tb=tb, fill=0),
+                                       _gather_batches(local, starts, ends, tb=tb, fill=-1),
+                                       tri9, TB_SUB)
+            if self.num_wide:
+                nn = total - self.num_wide
+                w_rows, w_local = _slot_rows(
+                    _gather_batches(tri[nn:], ws, we, tb=tb, fill=0),
+                    _gather_batches(local[nn:], ws, we, tb=tb, fill=-1), tri9, TB_SUB)
+                wide = (w_rows, w_local, *w_maps)
+            self.state = BandedState(rows=rows, local=local_b, batch_tile=batch_tile,
+                                     batch_basew=batch_base // WORD_BITS, wide=wide,
+                                     layout=layout, wide_layout=wide_layout)
 
     def words(self):
         """One call: (words (n, n, n/32) int32, overflow () int64)."""
