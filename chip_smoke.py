@@ -149,7 +149,13 @@ and no result line:
    candidates to it; the rotated torus has no x-degenerate face, so it
    routes none). After the last step all four training kernels are held
    again on the refreshed plan, the densest of the path, within the
-   same limits. Then `VoxelFit(engine="seg")` runs the same 5 steps
+   same limits. The fused plans are built on the card (torch ops and
+   C2, the pair cut, both of whose passes launch once a plan: 2 plans,
+   4 launches, the kernel table's count); C2 is caught on the pairs of
+   the refreshed soft plan's fused plan, both passes held bitwise against
+   their plain versions on host copies and timed (a single call and
+   `device_ms`) beside its bound and the plain versions' host time.
+   Then `VoxelFit(engine="seg")` runs the same 5 steps
    from the same plan and start: B9 / B10 / B11 held and timed on step
    1's inputs and held again on its refreshed plan (each plan printing
    its live slots and their mean transition window clipped to the
@@ -161,7 +167,7 @@ and no result line:
    B13 fwd / bwd are held and timed as B7 / B8 were, and its first loss
    must equal the fused engine's within 1e-4 relative. The
    kernel table's launches are phase 4's for B1-B5 and this phase's for
-   B7-B11 and B13 (phase 4b's for B4 and B12).
+   B7-B11, B13 and C2 (phase 4b's for B4 and B12).
 6b. The sharded paths (`voxtpu_torch.parallel`), after the kernels were
    built in phase 2: this script starts itself as the ranks of a world
    (`--sharded-rank WORLD RANK BACKEND DIR`), each importing only
@@ -1095,7 +1101,8 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
     B1, B2 = vox_slots_banded.banded_fill, vox_cuda.wide_fill
     B7, B8 = soft_vox_fused.fused_fwd, soft_vox_fused.fused_bwd
     B13F, B13B = soft_vox_cuda.fragment_fwd, soft_vox_cuda.fragment_bwd
-    every = (B1, B2, B7, B8, B13F, B13B)
+    C2 = (soft_vox_fused.pair_cut_counts, soft_vox_fused.pair_cut)
+    every = (B1, B2, B7, B8, B13F, B13B, *C2)
 
     for fn in every:
         fn.launches = 0
@@ -1108,10 +1115,11 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
     t1 = time.perf_counter()
     fit = VoxelFit(plan, target, learning_rate=TRAIN_LR_VOX * vs, engine="fused",
                    refresh_every=4, drift_limit_frac=0.25)
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
     fp = fit.engine_plan
     print(f"plan: make_soft_plan {t1 - t0:.1f} s ({plan.num_fragments:,} candidate "
-          f"fragments), FusedSoftPlan {t2 - t1:.1f} s ({fp.num_fragments:,} slots in "
+          f"fragments), FusedSoftPlan on the card {t2 - t1:.3f} s ({fp.num_fragments:,} slots in "
           f"{fp.num_batches:,} batches of {fp.cells_b[0].size}, {fp.num_pairs:,} "
           f"table rows)")
     state = fit.init(start)
@@ -1134,12 +1142,16 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
     state, losses, fused_walls, _ = fit_steps(
         fit, state, "fused", {"B1": B1, "B2": B2, "B7": B7, "B8": B8})
     launches = {"B1": B1.launches, "B2": B2.launches, "B7": B7.launches,
-                "B8": B8.launches}
+                "B8": B8.launches, "C2": C2[0].launches + C2[1].launches}
     print(f"fused launches {launches}")
-    for key in ("B1", "B7", "B8") + (("B2",) if pipe.num_wide else ()):
+    for key in ("B1", "B7", "B8", "C2") + (("B2",) if pipe.num_wide else ()):
         require(launches[key] > 0, f"the training path never launched {key}")
     require(launches["B7"] == TRAIN_STEPS + 1 and launches["B8"] == TRAIN_STEPS,
             "B7 / B8: one launch each per step, and B7 once for the final loss")
+    # Each plan, the fit's first and each refresh's, launches both passes of C2.
+    require(C2[0].launches == C2[1].launches == 1 + fit.refresh_count == 2,
+            f"C2: {C2[0].launches} + {C2[1].launches} launches for "
+            f"{1 + fit.refresh_count} plans, not 2 a plan")
 
     # Step 4's refresh made the densest plan of the path: the four
     # kernels are held on it too, at the last coordinates.
@@ -1149,6 +1161,7 @@ def training_path(dev, errs, timings, bounds, n: int = MAIN_N, faces: int = MAIN
         hold_fused(fit.engine_plan, tables, lambda occ: loss_cotangent(occ, target),
                    errs, f"{n}^3 refreshed")
         del tables
+        check_pair_cut(errs, timings, bounds, fit.plan, dev)
         t0 = time.perf_counter()
         rp = soft_vox_cuda.SoftCudaPlan(fit.plan, dev)
         print(f"refreshed plan: {fit.engine_plan.num_fragments:,} fused slots, "
@@ -1945,6 +1958,68 @@ def check_band_cut(errs, timings, bounds, mesh, spec, dev) -> None:
           f"{total} batches ({total - real} pads); both passes {timings['C1'][0]:.4f} ms a "
           f"single call, {timings['C1', 'device']:.4f} ms in a run, plain {plain_s * 1e3:.1f} "
           f"ms on the host, bound {bounds['C1'][0]:.4f} ms ({bounds['C1'][1]}); bitwise equal")
+
+
+def check_pair_cut(errs, timings, bounds, soft_plan, dev) -> None:
+    """The fused plan's pair cut (C2, `csrc/soft_plan.cu`) on the pairs
+    that the plan of `soft_plan` hands it: both passes bitwise their
+    plain versions on host copies, the write pass's runs the plan's batch
+    tiles; each pass timed as a single call and a launch in a run, beside
+    the bound (each pair's prefix and each run's bounds read once a pass,
+    the counts written, the offsets read, the batches written once) and
+    the plain versions' host time. None of these launches is the path's
+    own: C2's count comes from the fit."""
+    import torch
+
+    from voxtpu_torch.ops import soft_vox_fused as F
+
+    counts_fn, seen = F.pair_cut_counts, {}
+
+    def catch(csum, pbounds, **kw):
+        seen.update(args=(csum, pbounds), kw=kw)
+        return counts_fn(csum, pbounds, **kw)
+
+    catch.launches = 0  # the wrapper counts on the module's name, `catch` here
+    with uncounted(counts_fn, F.pair_cut):
+        F.pair_cut_counts = catch
+        try:
+            plan = F.FusedSoftPlan(soft_plan, dev)
+        finally:
+            F.pair_cut_counts = counts_fn
+        (csum, pbounds), kw = seen["args"], seen["kw"]
+        host = [a.cpu() for a in (csum, pbounds)]
+        counts = counts_fn(csum, pbounds, **kw)
+        t0 = time.perf_counter()
+        want = F.pair_cut_counts_plain(*host, **kw)
+        plain_s = time.perf_counter() - t0
+        errs["C2"] = int_err(counts.cpu(), want)
+        require(torch_equal(counts.cpu(), want), "C2's count pass differs from its plain version")
+        off = (torch.cumsum(counts, 0) - counts).int()
+        total = int(counts.sum())
+        got = F.pair_cut(csum, pbounds, off, total=total, **kw)
+        t0 = time.perf_counter()
+        want = F.pair_cut_plain(*host, off.cpu(), total=total, **kw)
+        plain_s += time.perf_counter() - t0
+        for a, b in zip(got, want):
+            errs["C2"] = max(errs["C2"], int_err(a.cpu(), b))
+            require(torch_equal(a.cpu(), b), "C2's write pass differs from its plain version")
+        require(torch_equal(got[0].cpu(), plan.batch_tile_d.cpu()),
+                "C2's batches are not the plan's")
+
+        def both():
+            c = counts_fn(csum, pbounds, **kw)
+            F.pair_cut(csum, pbounds, off, total=total, **kw)
+            return c
+
+        timings["C2"] = (cuda_ms(both), plain_s * 1e3)
+        timings["C2", "device"] = device_ms(both, launches=20)
+    pairs, runs = int(host[0].shape[0]) - 1, int(host[1].shape[0]) - 1
+    moved = 2 * (4 * (pairs + 1) + 4 * (runs + 1)) + 4 * runs + 4 * runs + 12 * total
+    bounds["C2"] = bound(moved)
+    print(f"C2 pair cut at {soft_plan.spec.n}^3: {pairs} pairs on {runs} tiles, {total} "
+          f"batches; both passes {timings['C2'][0]:.4f} ms a single call, "
+          f"{timings['C2', 'device']:.4f} ms in a run, plain {plain_s * 1e3:.1f} ms on the "
+          f"host, bound {bounds['C2'][0]:.4f} ms ({bounds['C2'][1]}); bitwise equal")
 
 
 def torch_equal(a, b) -> bool:
@@ -3402,7 +3477,7 @@ def run() -> int:
     phase(f"6. training path: VoxelFit at {MAIN_N}^3 on {MAIN_FACES:,} faces")
     train, fit_case = training_path(dev, errs, timings, bounds)
     launches.update({k: train[k]
-                     for k in ("B7", "B8", "B9", "B10", "B11", "B13f", "B13b")})
+                     for k in ("B7", "B8", "B9", "B10", "B11", "B13f", "B13b", "C2")})
 
     # ---- 6b. the sharded paths -----------------------------------------------------
     phase("6b. sharded paths: a world of 1 (NCCL) and of 2 (gloo, both ranks on this card)")
@@ -3449,6 +3524,8 @@ def run() -> int:
          "voxtpu/ops/vox_pallas_wq.py:35"),
         ("C1", "C1 band_cut_counts + band_cut", "voxtpu_torch/csrc/vox_plan.cu",
          "none (voxtpu's host cut, voxtpu/ops/vox_slots_banded.py:389-448)"),
+        ("C2", "C2 pair_cut_counts + pair_cut", "voxtpu_torch/csrc/soft_plan.cu",
+         "none (voxtpu's host cut, voxtpu/ops/soft_vox_fused.py:596-696)"),
         (("B13f", "sharded"), "B13 fragment_fwd (sharded, a rank's plan)", soft,
          "voxtpu/parallel/sharded_soft_pallas.py:91"),
         (("B13b", "sharded"), "B13 fragment_bwd (sharded, a rank's plan)", soft,

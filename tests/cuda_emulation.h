@@ -1,6 +1,6 @@
 // A host emulation of the CUDA features that the csrc sources run on
 // the host use (csrc/jfa.cu, jfa_probe.cu, soft_vox.cu, soft_vox_seg.cu,
-// vox_we.cu, vox_fill.cu, vox_plan.cu), for the
+// vox_we.cu, vox_fill.cu, vox_plan.cu, soft_plan.cu), for the
 // tests/test_torch_*_emulated.py tests.
 //
 // A launch runs its clusters one after another (a launch without a

@@ -149,6 +149,66 @@ def test_plan_on_the_card_equals_the_plan_on_the_cpu(dev, name, n, band):
     assert int(overflow) == 0 == int(host_overflow) and torch.equal(words, host_words)
 
 
+def _fused_plan_arrays(plan) -> dict:
+    out = {k: getattr(plan, k) for k in ("cells_d", "tblidx_d", "batch_tile_d", "run_start_d",
+                                         "tile_mask_d", "fidx_d", "faces_d", "expand_inv_d",
+                                         "vert_inv_d")}
+    for key in ("expand_cls_d", "vert_cls_d"):
+        out.update({f"{key}{i}": c for i, c in enumerate(getattr(plan, key))})
+    out["counters"] = torch.tensor([plan.num_batches, plan.num_pairs, plan.num_fragments,
+                                    plan.num_faces, plan.num_vertices])
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _check_fused_plan(card):
+    host = soft_vox_fused.FusedSoftPlan(card.soft_plan, "cpu")
+    got, want = _fused_plan_arrays(card), _fused_plan_arrays(host)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+
+
+def test_fused_plan_on_the_card_equals_the_plan_on_the_cpu(dev):
+    """The fused engine's plan at 512^3 on the fit cells' torus, built on
+    the card (torch ops and C2) at a fit's start and again at its drift
+    refresh after 8 steps of the fit cells' traffic (lr 0.25 voxel),
+    equals the plan built on the CPU (the same ops and C2's plain
+    version), tensor for tensor and bit for bit: both passes of C2 once
+    a plan, four host reads a plan, the spans' CUDA events recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from voxtpu_torch.utils import trace as tr
+
+    mesh = _plan_mesh("torus")
+    spec = GridSpec.fit(mesh.coords, 512)
+    vs = spec.voxel_size
+    rng = np.random.default_rng(2000000011)
+    start = (mesh.coords + np.float32([0.5 * vs, 0.0, 0.0])
+             + rng.normal(0, 0.1 * vs, mesh.coords.shape)).astype(np.float32)
+    target = vox_slots_banded.BandedSlotVoxPipeline(mesh, spec, dev)().to_dense().float()
+    plan = soft_vox.make_soft_plan(Mesh(name="start", coords=start, faces=mesh.faces,
+                                        faces_normals=mesh.faces), spec)
+    cut = (soft_vox_fused.pair_cut_counts.launches, soft_vox_fused.pair_cut.launches)
+    tr.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fit = VoxelFit(plan, target, learning_rate=0.25 * vs, tau_edge_frac=0.5,
+                       tau_x_frac=0.5, refresh_every=8, drift_limit_frac=0.5,
+                       engine="fused")
+    records = [r for r in tr.recorded() if r.name.startswith("soft.engine_plan.")]
+    tr.clear()
+    assert (soft_vox_fused.pair_cut_counts.launches,
+            soft_vox_fused.pair_cut.launches) == (cut[0] + 1, cut[1] + 1)
+    assert len(records) == 3 and all(r.device_ms is not None for r in records)
+    assert sum(r.counts.get("syncs", 0) for r in records) == 4
+    _check_fused_plan(fit.engine_plan)
+    built = fit.engine_plan.num_fragments
+    state = fit.init(start)
+    for _ in range(8):
+        state, _ = fit.step(state)
+    assert fit.refresh_count == 1 and fit.engine_plan.num_fragments > built
+    _check_fused_plan(fit.engine_plan)
+
+
 @pytest.mark.parametrize("n,tc,tiles", [(64, 128, 3), (512, 128, 4), (4096, 128, 2)])
 def test_wide_fill_kernel_matches_plain(dev, n, tc, tiles):
     g = torch.Generator().manual_seed(n)

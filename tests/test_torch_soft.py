@@ -179,6 +179,56 @@ def test_fused_plan_arrays_match_voxtpu(torus, layout):
     assert len(np.unique(port.batch_tile)) == len(runs) - 1
 
 
+PLAN_COUNTS = ("num_batches", "num_pairs", "num_fragments", "num_faces", "num_vertices",
+               "tc", "tb_sub", "tbl")
+PLAN_ARRAYS = ("cells_b", "tblidx_b", "batch_tile", "table_face_flat", "tile_mask",
+               "expand_inv", "vert_inv")
+
+
+@pytest.mark.parametrize("refreshed", [False, True], ids=["built", "refreshed"])
+@pytest.mark.parametrize("layout", [dict(), dict(tb_sub=2, tbl=64)])
+@pytest.mark.parametrize("name", ["torus", "icosphere"])
+def test_fused_device_plan_is_bitwise_the_numpy_plan(name, layout, refreshed):
+    """The plan built in torch ops (C2's plain version on the CPU) against
+    the NumPy builder it replaces and voxtpu's plan: every count, every
+    host array (each of its dtype), the classed tables and the tensors
+    the per-call path reads, on a fresh plan and on one refreshed from
+    moved coordinates."""
+    coords, faces = MESHES[name]()
+    mesh, jmesh = _meshes(coords, faces)
+    spec = GridSpec.fit(coords, N)
+    jspec = JSpec(n=spec.n, origin=spec.origin, voxel_size=spec.voxel_size)
+    sp, jsp = make_soft_plan(mesh, spec), j_soft.make_soft_plan(jmesh, jspec)
+    if refreshed:
+        moved = coords + np.random.default_rng(2).normal(0, 0.02, coords.shape).astype(np.float32)
+        sp = soft_vox.refresh_soft_plan(sp, torch.from_numpy(moved))
+        jsp = j_soft.refresh_soft_plan(jsp, moved)
+    got = FusedSoftPlan(sp, "cpu", **layout)
+    host = FusedSoftPlan.on_host(sp, "cpu", **layout)
+    ref = j_fused.FusedSoftPlan(jsp, **layout)
+    for attr in PLAN_COUNTS:
+        assert getattr(got, attr) == getattr(host, attr) == getattr(ref, attr), attr
+    for attr in PLAN_ARRAYS:
+        a, b = getattr(got, attr), getattr(host, attr)
+        assert a.dtype == b.dtype, attr
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, np.asarray(getattr(ref, attr + "_d" if attr.endswith(
+            "_inv") else attr)))
+    for attr in ("expand_cls", "vert_cls"):
+        a, b, c = getattr(got, attr), getattr(host, attr), getattr(ref, attr + "_d")
+        assert len(a) == len(b) == len(c) > 0, attr
+        for x, y, z in zip(a, b, c):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(x, np.asarray(z))
+    for attr in ("cells_d", "tblidx_d", "batch_tile_d", "run_start_d", "fidx_d", "faces_d",
+                 "expand_inv_d", "vert_inv_d"):
+        a, b = getattr(got, attr), getattr(host, attr)
+        assert a.dtype == b.dtype and torch.equal(a, b), attr
+    for attr in ("expand_cls_d", "vert_cls_d"):
+        assert all(torch.equal(a, b) for a, b in zip(getattr(got, attr), getattr(host, attr)))
+
+
 def test_cuda_plan_arrays_match_voxtpu(torus):
     port = SoftCudaPlan(torus["sp"], "cpu")
     ref = j_pallas.SoftPallasPlan(torus["jsp"])

@@ -1,6 +1,6 @@
 """The port's spans (`utils/trace.py::span`) on the CPU: the gate, the
-bounded store, and the phases that the serving plan, the JFA and a
-fit's plan refresh record under `torch.profiler`."""
+bounded store, and the phases that the serving plan, the JFA, the fused
+plan and a fit's plan refresh record under `torch.profiler`."""
 
 import glob
 import json
@@ -21,6 +21,7 @@ from voxtpu_torch.models.fit import VoxelFit
 from voxtpu_torch.ops.jfa import jfa
 from voxtpu_torch.ops.reference import voxelize_ref
 from voxtpu_torch.ops.soft_vox import make_soft_plan
+from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
 from voxtpu_torch.utils import trace as tr
 
@@ -29,6 +30,7 @@ from tests.test_torch_cli import _write_meshes
 N = 64
 VOX_PHASES = ["vox.plan.candidates", "vox.plan.windows", "vox.plan.batches",
               "vox.plan.upload"]
+ENGINE_PHASES = ["soft.engine_plan.cells", "soft.engine_plan.cut", "soft.engine_plan.tables"]
 
 
 def _profiled():
@@ -172,12 +174,48 @@ def test_fused_refresh_records_soft_plan_and_engine_plan_inside_the_step():
         t1 = time.perf_counter()
     assert fit.refresh_count == 1
     records = [r for r in tr.recorded() if r.name.startswith("soft.")]
-    assert [r.name for r in records] == ["soft.plan", "soft.engine_plan"]
-    soft, engine = records
+    assert [r.name for r in records] == ["soft.plan"] + ENGINE_PHASES + ["soft.engine_plan"]
+    soft, *phases, engine = records
     assert t0 <= soft.t0 <= soft.t1 <= engine.t0 <= engine.t1 <= t1
+    assert all(engine.t0 <= r.t0 <= r.t1 <= engine.t1 and r.parent == "soft.engine_plan"
+               for r in phases)
     assert soft.counts == {"fragments": fit.plan.num_fragments}
     assert engine.counts == {"fragments": fit.engine_plan.num_fragments,
                              "pairs": fit.engine_plan.num_pairs}
+
+
+@pytest.mark.parametrize("layout", [dict(), dict(tb_sub=2, tbl=64)])
+def test_fused_plan_records_its_three_phases(layout):
+    """What crosses between host and device while a fused plan is built:
+    the bucket rows and the faces on the way up; four reads on the way
+    back (the slot and pair totals; the batch total, the least count and
+    the busy tiles; the two classed layouts' largest counts with the
+    least and largest batch tile, table row and cell and the batches out
+    of tile order; the layouts' histograms). Nothing that grows with the
+    slots or the pairs."""
+    mesh = _mesh("icosphere")
+    spec = GridSpec.fit(mesh.coords, N)
+    sp = make_soft_plan(mesh, spec, pad_window=2)
+    tr.clear()
+    with _profiled():
+        plan = FusedSoftPlan(sp, "cpu", **layout)
+    records = [r for r in tr.recorded() if r.name.startswith("soft.engine_plan.")]
+    assert [r.name for r in records] == ENGINE_PHASES
+    assert all(r.parent is None and r.device_ms is None for r in records)
+    for a, b in zip(records, records[1:]):
+        assert a.t0 <= a.t1 <= b.t0 <= b.t1
+    rows = sum(len(b[4]) for b in sp.buckets)
+    assert records[0].counts == {"host_bytes": 3 * 4 * rows + mesh.faces.size * 4}
+    assert records[1].counts == {"host_bytes": 2 * 8 + 3 * 8, "syncs": 2,
+                                 "batches": plan.num_batches}
+    # The largest class of each layout is its largest count.
+    hist = plan.expand_cls[-1].shape[0] + 1 + plan.vert_cls[-1].shape[0] + 1
+    assert records[2].counts == {"host_bytes": 9 * 8 + 8 * hist, "syncs": 2}
+    assert plan.num_batches > len(set(plan.batch_tile.tolist())) > 1
+    # The spans change nothing of the plan.
+    ref = FusedSoftPlan.on_host(sp, "cpu", **layout)
+    for attr in ("cells_d", "tblidx_d", "batch_tile_d", "run_start_d", "fidx_d"):
+        assert torch.equal(getattr(plan, attr), getattr(ref, attr)), attr
 
 
 def test_cli_trace_holds_the_port_phases(tmp_path, capsys):

@@ -91,6 +91,10 @@ SIGNATURES = {
     # xlo, xhi, tbounds, off, pads, batch_tile, batch_base, start, end,
     # num_tiles, n, band, tb, stream
     "vt_band_cut": [_P] * 9 + [_I] * 4 + [_P],
+    # csum, pbounds, counts, num_runs, tb, tbl, stream
+    "vt_pair_cut_counts": [_P] * 3 + [_I] * 3 + [_P],
+    # csum, pbounds, off, batch_run, p0, p1, num_runs, tb, tbl, stream
+    "vt_pair_cut": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 

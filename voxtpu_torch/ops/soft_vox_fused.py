@@ -33,6 +33,19 @@ The kernels read the f32 tables directly and B7 writes each tile once.
 Beside each kernel is its plain torch version (`fused_fwd_plain`,
 `fused_bwd_plain`), in chunks of batches; a wrapper takes it for CPU
 tensors and launches the kernel for CUDA tensors.
+
+The plan (`FusedSoftPlan`) is built on the plan's device, not on the
+host: the soft plan's bucket rows and the faces go up once, and the slot
+keys, their sort, the pairs, the slot scatters and both classed layouts
+are torch ops there. The greedy batch cut, the one sequential step, is
+kernel C2 (`csrc/soft_plan.cu`, `pair_cut_counts`, `pair_cut`), which
+replaces voxtpu's host loop. Four host reads a plan (the slot and pair
+totals; the batch total; the layouts' largest counts with the plan's
+range checks; their histograms), counted on the spans
+``soft.engine_plan.cells``, ``.cut`` and ``.tables``. Every array is
+the NumPy builder's (`FusedSoftPlan.on_host`, voxtpu's, which the seg
+and cuda engines' plans still use) value for value; a CPU device runs
+the same code with C2's plain version.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ from voxtpu_torch.ops.soft_vox import (CHUNK_ELEMS, clip01, f32, profile_add,
                                        profile_grid, profile_out, profile_sums,
                                        temperatures, x_centers)
 from voxtpu_torch.ops.vox_cuda import TB_LANE, TILE_CELLS, _check_range
+from voxtpu_torch.ops.vox_slots_banded import _read, _upload
+from voxtpu_torch.utils.trace import span
 
 NATTR = 16
 NGRAD = 13  # coefficient cotangents per slot (rows 13..15 stay zero)
@@ -508,11 +523,287 @@ def slot_cells(soft_plan, n: int):
     return np.concatenate(cells_l), np.concatenate(faces_l)
 
 
+# ---------------------------------------------------------------------------
+# The plan on the device: slot keys, the pair cut (C2), the classed layouts
+# ---------------------------------------------------------------------------
+
+# The key of an out-of-grid cell: it sorts after every slot.
+_NO_SLOT = torch.iinfo(torch.int64).max
+
+
+def slot_keys(soft_plan, run_of, *, tc: int, sp, device) -> torch.Tensor:
+    """`slot_cells`' candidate cells as sorted int64 keys, built on
+    `device`: (run * num_faces + face) * tc + cell % tc, where
+    `run_of(cell, face)` (int64 tensors) gives a slot's run (its tile, in
+    the fused plan), and `_NO_SLOT` for each out-of-grid cell, at the end.
+    The sort gives `np.lexsort((cells, faces, run))`'s order (equal keys
+    are equal slots). The bucket rows go up once, counted on the span
+    `sp`."""
+    n = soft_plan.spec.n
+    num_faces = len(soft_plan.faces_array)
+    buckets = soft_plan.buckets
+    if not buckets:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    rows = _upload(sp, np.concatenate([np.stack(b[4:7]) for b in buckets], 1), device,
+                   np.int32)
+    keys, r0 = [], 0
+    for b in buckets:
+        window, r1 = b[0], r0 + len(b[4])
+        sy, sz, face = (a[:, None, None] for a in rows[:, r0:r1].long())
+        d = torch.arange(window, device=device)
+        ys = sy + d[None, None, :]
+        zs = sz + d[None, :, None]
+        cell = zs * n + ys  # (rows, dz, dy), slot_cells' order
+        key = (run_of(cell, face) * num_faces + face) * tc + cell % tc
+        out = (ys < 0) | (ys >= n) | (zs < 0) | (zs >= n)
+        keys.append(key.masked_fill_(out, _NO_SLOT).view(-1))
+        r0 = r1
+    key = torch.cat(keys)
+    del keys
+    return torch.sort(key, stable=True).values
+
+
+def _cut_rounds(csum: np.ndarray, pbounds: np.ndarray, *, tb: int, tbl: int):
+    """`_cut_batches`' greedy loop on every run at once (host arrays):
+    yields each round's (runs, first pairs, end pairs). A run whose next
+    pair alone exceeds `tb` slots gets end == first and closes."""
+    runs = np.flatnonzero(np.diff(pbounds))
+    cur, end = pbounds[runs].astype(np.int64), pbounds[runs + 1]
+    while runs.size:
+        j = np.searchsorted(csum, csum[cur] + tb, side="right") - 1
+        j = np.minimum(np.minimum(j, cur + tbl), end)
+        yield runs, cur, j
+        live = (j > cur) & (j < end)
+        runs, cur, end = runs[live], j[live], end[live]
+
+
+def pair_cut_counts_plain(csum, pbounds, *, tb: int, tbl: int) -> torch.Tensor:
+    """Plain version of C2's first pass (CPU tensors): voxtpu's loop,
+    counting each run's batches (-1 where a pair exceeds `tb`)."""
+    cs, pb = csum.numpy(), pbounds.numpy()
+    counts = np.zeros(len(pb) - 1, np.int32)
+    for runs, c, j in _cut_rounds(cs, pb, tb=tb, tbl=tbl):
+        counts[runs] = np.where(j > c, counts[runs] + 1, -1)
+    return torch.from_numpy(counts)
+
+
+def pair_cut_plain(csum, pbounds, off, *, total: int, tb: int, tbl: int):
+    """Plain version of C2's second pass (CPU tensors): voxtpu's loop,
+    writing each batch's (run, first pair, end pair) at its run's
+    offset."""
+    out = np.zeros((3, total), np.int32)
+    k = off.numpy().astype(np.int64)
+    for runs, c, j in _cut_rounds(csum.numpy(), pbounds.numpy(), tb=tb, tbl=tbl):
+        out[:, k[runs]] = (runs, c, j)
+        k[runs] += 1
+    return tuple(torch.from_numpy(a) for a in out)
+
+
+def _check_pair_cut(csum, pbounds, *, tb: int, tbl: int) -> int:
+    _build.expect(csum, "csum", torch.int32, (None,))
+    _build.expect(pbounds, "pbounds", torch.int32, (None,))
+    if pbounds.shape[0] < 1 or tb < 1 or tbl < 1:
+        raise ValueError(f"need run bounds, tb >= 1 and tbl >= 1 (tb={tb}, tbl={tbl})")
+    return pbounds.shape[0] - 1
+
+
+def pair_cut_counts(csum: torch.Tensor, pbounds: torch.Tensor, *, tb: int,
+                    tbl: int) -> torch.Tensor:
+    """C2's first pass -> (num_runs,) int32 batches a run, -1 where a
+    pair exceeds `tb` slots. Pairs are (P + 1,) int32 prefix slots
+    `csum` (pair p's slots [csum[p], csum[p + 1])), sorted by run; run
+    t's are [pbounds[t], pbounds[t + 1]) ((num_runs + 1,) int32). A batch
+    holds at most `tb` slots and `tbl` pairs of one run.
+
+    Replaces no TPU kernel: voxtpu's host cut (`soft_vox_fused.py:
+    596-696`). A CPU tensor takes the plain version, a CUDA tensor
+    launches `csrc/soft_plan.cu::vt_pair_cut_counts`."""
+    num_runs = _check_pair_cut(csum, pbounds, tb=tb, tbl=tbl)
+    if not _build.on_cuda(csum, pbounds):
+        return pair_cut_counts_plain(csum, pbounds, tb=tb, tbl=tbl)
+    counts = torch.empty(num_runs, dtype=torch.int32, device=csum.device)
+    _build.launch("vt_pair_cut_counts", csum.data_ptr(), pbounds.data_ptr(),
+                  counts.data_ptr(), num_runs, tb, tbl, _build.stream_of(counts))
+    pair_cut_counts.launches += 1
+    return counts
+
+
+pair_cut_counts.launches = 0
+
+
+def pair_cut(csum: torch.Tensor, pbounds: torch.Tensor, off: torch.Tensor, *,
+             total: int, tb: int, tbl: int):
+    """C2's second pass -> (batch_run, p0, p1), each (total,) int32: run
+    t's batches from `off[t]` on ((num_runs,) int32), each its run and
+    its pairs [p0, p1). Pairs as in `pair_cut_counts`, none exceeding
+    `tb`.
+
+    A CPU tensor takes the plain version, a CUDA tensor launches
+    `csrc/soft_plan.cu::vt_pair_cut`."""
+    num_runs = _check_pair_cut(csum, pbounds, tb=tb, tbl=tbl)
+    _build.expect(off, "off", torch.int32, (num_runs,))
+    if not _build.on_cuda(csum, pbounds, off):
+        return pair_cut_plain(csum, pbounds, off, total=total, tb=tb, tbl=tbl)
+    out = torch.empty((3, total), dtype=torch.int32, device=csum.device)
+    _build.launch("vt_pair_cut", csum.data_ptr(), pbounds.data_ptr(), off.data_ptr(),
+                  *(r.data_ptr() for r in out), num_runs, tb, tbl, _build.stream_of(out))
+    pair_cut.launches += 1
+    return tuple(out)
+
+
+pair_cut.launches = 0
+
+
+def cut_pairs(key: torch.Tensor, *, num_runs: int, num_faces: int, tc: int,
+              tb_sub: int, tbl: int, sp) -> dict:
+    """`_cut_batches` on the device, from `slot_keys`' sorted keys (runs
+    in [0, num_runs)): dict(num_fragments, num_pairs, counts (num_runs,)
+    int32 batches a run, cells_b and tblidx_b (B, tb_sub, 128) int32,
+    batch_run (B,) int32, table_face (B * tbl,) int32, run_start (R + 1,)
+    int32 the bounds of the runs of batches). Two host reads, counted on
+    the span `sp`: the slot and pair totals; the batch total with the
+    least count (a pair over the slot budget raises) and the busy runs."""
+    dev = key.device
+    tb = tb_sub * TB_LANE
+    live = key != _NO_SLOT
+    pk = key // tc  # the slot's pair: run * num_faces + face
+    newpair = live.clone()
+    newpair[1:] &= pk[1:] != pk[:-1]
+    num_fragments, num_pairs = (int(v) for v in _read(sp, torch.stack(
+        [live.sum(), newpair.sum()])))
+    del live
+    if num_fragments + tb >= 2 ** 31:
+        raise ValueError(f"{num_fragments} slots: the cut indexes them in 32 bits")
+    out = dict(num_fragments=num_fragments, num_pairs=num_pairs)
+    if not num_pairs:  # one empty batch on run 0
+        return dict(out, counts=torch.zeros(num_runs, dtype=torch.int32, device=dev),
+                    cells_b=torch.full((1, tb_sub, TB_LANE), -1, dtype=torch.int32,
+                                       device=dev),
+                    tblidx_b=torch.zeros((1, tb_sub, TB_LANE), dtype=torch.int32, device=dev),
+                    batch_run=torch.zeros(1, dtype=torch.int32, device=dev),
+                    table_face=torch.full((tbl,), -1, dtype=torch.int32, device=dev),
+                    run_start=torch.arange(2, dtype=torch.int32, device=dev))
+    local = (key[:num_fragments] % tc).int()
+    pk, newpair = pk[:num_fragments], newpair[:num_fragments]
+    pidx = torch.cumsum(newpair, 0) - 1  # each slot's pair
+    del newpair
+    start = torch.searchsorted(pidx, torch.arange(num_pairs, device=dev))  # each pair's first slot
+    csum = torch.cat([start, start.new_full((1,), num_fragments)]).int()
+    ppk = pk[start]
+    del pk
+    pbounds = torch.searchsorted(ppk // num_faces, torch.arange(num_runs + 1, device=dev),
+                                 out_int32=True)
+    counts = pair_cut_counts(csum, pbounds, tb=tb, tbl=tbl)
+    busy = counts > 0
+    num_batches, least, num_busy = (int(v) for v in _read(sp, torch.stack(
+        [counts.sum(), counts.min().long(), busy.sum()])))
+    if least < 0:
+        raise AssertionError("pair exceeds batch capacity")
+    off = (torch.cumsum(counts, 0) - counts).int()
+    batch_run, p0, _ = pair_cut(csum, pbounds, off, total=num_batches, tb=tb, tbl=tbl)
+    p0 = p0.long()
+    b_of_pair = torch.zeros(num_pairs, dtype=torch.int64, device=dev).scatter_(0, p0, 1)
+    b_of_pair = torch.cumsum(b_of_pair, 0) - 1
+    first = p0[b_of_pair[pidx]]  # each slot's batch's first pair
+    flat = b_of_pair[pidx] * tb + torch.arange(num_fragments, device=dev) - start[first]
+    cells_b = torch.full((num_batches * tb,), -1, dtype=torch.int32, device=dev)
+    cells_b.scatter_(0, flat, local)
+    tblidx_b = torch.zeros(num_batches * tb, dtype=torch.int32, device=dev)
+    tblidx_b.scatter_(0, flat, (pidx - first).int())
+    del flat, first, pidx, local
+    tslot = b_of_pair * tbl + torch.arange(num_pairs, device=dev) - p0[b_of_pair]
+    table_face = torch.full((num_batches * tbl,), -1, dtype=torch.int32, device=dev)
+    table_face.scatter_(0, tslot, (ppk % num_faces).int())
+    # The busy runs' first batches, then the batch total (a dump slot past it).
+    at = torch.where(busy, torch.cumsum(busy, 0) - 1, num_busy + 1)
+    run_start = torch.empty(num_busy + 2, dtype=torch.int32, device=dev).scatter_(0, at, off)
+    run_start[num_busy] = num_batches
+    return dict(out, counts=counts,
+                cells_b=cells_b.view(num_batches, tb_sub, TB_LANE),
+                tblidx_b=tblidx_b.view(num_batches, tb_sub, TB_LANE), batch_run=batch_run,
+                table_face=table_face, run_start=run_start[:num_busy + 1])
+
+
+class _ClassedLayout:
+    """`_build_classed_reduction` on the device, in the steps between its
+    two host reads, which the caller makes (a plan's two layouts share
+    them): the sources sorted by target (stable), each target's first
+    source and count, and the largest count (`most`); the histogram of
+    the counts; then the class tables (one gather a class) and `inv`.
+    Targets stay ascending within a class and sources in their stable
+    order, so the tables are the NumPy layout's value for value (int64)."""
+
+    def __init__(self, ids: torch.Tensor, num_targets: int):
+        ids_sorted, self.order = torch.sort(ids, stable=True)
+        self.starts = torch.searchsorted(
+            ids_sorted, torch.arange(num_targets + 1, dtype=ids.dtype, device=ids.device))
+        self.counts = self.starts.diff()
+        self.most = torch.cat([self.counts, self.counts.new_zeros(1)]).amax().view(1)
+
+    def histogram(self, most: int) -> torch.Tensor:
+        """(most + 1,) int64 targets of each count."""
+        return self.counts.new_zeros(most + 1).scatter_add_(
+            0, self.counts, torch.ones_like(self.counts))
+
+    def tables(self, hist: np.ndarray):
+        """(cls_pos, inv) from the host copy of `histogram`."""
+        num_targets = self.counts.shape[0]
+        dev = self.counts.device
+        by_count = torch.sort(self.counts, stable=True).indices
+        zero = int(hist[0])
+        cls_pos, at = [], zero
+        for c in np.flatnonzero(hist[1:]) + 1:
+            targets = by_count[at:at + int(hist[c])]
+            cls_pos.append(self.order[self.starts[targets][None, :]
+                                      + torch.arange(c, device=dev)[:, None]])
+            at += int(hist[c])
+        rank = torch.empty_like(by_count).scatter_(
+            0, by_count, torch.arange(num_targets, device=dev) - zero)
+        return tuple(cls_pos), torch.where(self.counts > 0, rank, num_targets - zero)
+
+
 class TablePlan:
     """A slot layout (`cells_b`, `tblidx_b`, `batch_tile`) with its
     per-batch triangle tables (`table_face_flat`) and the classed
     reductions behind `tables_of`, on `device`: what the fused and seg
     plans share."""
+
+    def _setup_tables_d(self, soft_plan, faces_d, tc, tbl, cut, sp):
+        """`_setup_tables` on the device, from `cut_pairs`' layout and the
+        faces (T, 3) on the plan's device: the tensors the per-call path
+        reads, none on the host. Two host reads, counted on the span
+        `sp`: both classed layouts' largest counts with the range checks'
+        least and largest values and the batches out of tile order; the
+        layouts' histograms."""
+        spec = soft_plan.spec
+        self.spec = spec
+        self.soft_plan = soft_plan
+        self.tc, self.tbl = tc, tbl
+        self.device = faces_d.device
+        self.cells_d, self.tblidx_d = cut["cells_b"], cut["tblidx_b"]
+        self.batch_tile_d = cut["batch_run"]
+        self.tb_sub = self.cells_d.shape[1]
+        self.num_batches = self.batch_tile_d.shape[0]
+        self.num_faces = int(faces_d.shape[0])
+        self.num_vertices = int(np.asarray(soft_plan.faces_array).max(initial=-1)) + 1
+        table_face = cut["table_face"]
+        self.fidx_d = torch.where(table_face < 0, self.num_faces, table_face).long()
+        self.faces_d = faces_d.long()
+        expand = _ClassedLayout(table_face, self.num_faces)
+        vert = _ClassedLayout(self.faces_d.view(-1), self.num_vertices)
+        checked = (("batch_tile", self.batch_tile_d, 0, (spec.n * spec.n) // tc),
+                   ("tblidx_b", self.tblidx_d, 0, tbl), ("cells_b", self.cells_d, -1, tc))
+        got = _read(sp, torch.cat([expand.most, vert.most] + [
+            torch.stack(torch.aminmax(t)).long() for _, t, _, _ in checked] + [
+            (self.batch_tile_d.diff() < 0).sum().view(1)]))
+        for i, (name, _, lo, hi) in enumerate(checked):
+            _check_range(got[2 + 2 * i:4 + 2 * i], name, lo, hi)
+        if got[-1]:  # `tile_runs`' check: the forward kernels take one run a tile
+            raise ValueError("batches are not grouped by tile")
+        most_e, most_v = int(got[0]), int(got[1])
+        hist = _read(sp, torch.cat([expand.histogram(most_e), vert.histogram(most_v)]))
+        self.expand_cls_d, self.expand_inv_d = expand.tables(hist[:most_e + 1])
+        self.vert_cls_d, self.vert_inv_d = vert.tables(hist[most_e + 1:])
 
     def _setup_tables(self, soft_plan, device, tc, tbl, cells_b, tblidx_b,
                       batch_tile, table_face_flat):
@@ -566,19 +857,78 @@ class TablePlan:
         return tuple(f32(o) for o in self.spec.origin) + (vs, tau_e, tau_x)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+# A plan built on the device keeps its host arrays (voxtpu's names, which
+# the tests read) on the device: each is read on first use.
+_HOST_COPIES = {
+    "cells_b": lambda p: _host(p.cells_d),
+    "tblidx_b": lambda p: _host(p.tblidx_d),
+    "batch_tile": lambda p: _host(p.batch_tile_d),
+    "table_face_flat": lambda p: np.where(_host(p.fidx_d) == p.num_faces, -1,
+                                          _host(p.fidx_d)).astype(np.int32),
+    "tile_mask": lambda p: _host(p.tile_mask_d),
+    "expand_cls": lambda p: tuple(_host(c).astype(np.int32) for c in p.expand_cls_d),
+    "expand_inv": lambda p: _host(p.expand_inv_d).astype(np.int32),
+    "vert_cls": lambda p: tuple(_host(c).astype(np.int32) for c in p.vert_cls_d),
+    "vert_inv": lambda p: _host(p.vert_inv_d).astype(np.int32),
+}
+
+
 class FusedSoftPlan(TablePlan):
     """Static (tile, triangle) batch layout and per-batch triangle
     tables of one soft plan, on `device` (`soft_vox_fused.py:699-796`).
 
     Fragments (candidate cells) are ordered by (tile, face, cell);
     batches are greedy cuts within the slot budget (tb_sub * 128) and
-    the triangle budget (tbl). Host arrays keep voxtpu's names
-    (`cells_b`, `tblidx_b`, `batch_tile`, `tile_mask`,
-    `table_face_flat`, the classed-reduction tables); the tensors the
-    per-call path reads end in ``_d``."""
+    the triangle budget (tbl). The tensors the per-call path reads end
+    in ``_d``. The plan is built on `device` (the module's note): the
+    phases are the spans ``soft.engine_plan.cells`` (the upload, the
+    slot keys and their sort), ``.cut`` (the pairs, C2, the slot
+    scatters; counts `batches`) and ``.tables`` (the classed layouts),
+    each counting its `host_bytes` and `syncs`. The host arrays keep
+    voxtpu's names (`cells_b`, `tblidx_b`, `batch_tile`, `tile_mask`,
+    `table_face_flat`, the classed-reduction tables), read from the
+    device on first use; `on_host` builds them with NumPy, as voxtpu
+    does."""
 
     def __init__(self, soft_plan, device, tc: int = TILE_CELLS,
                  tb_sub: int = 4, tbl: int = 128):
+        n = soft_plan.spec.n
+        if (n * n) % tc != 0:
+            raise ValueError("n*n must divide tile cells")
+        _check_fwd_smem(tc, tb_sub * TB_LANE)
+        dev = torch.empty(0, device=device).device
+        with span("soft.engine_plan.cells", dev) as sp:
+            faces_d = _upload(sp, soft_plan.faces_array, dev, np.int32)
+            key = slot_keys(soft_plan, lambda cell, face: cell // tc, tc=tc, sp=sp,
+                            device=dev)
+        with span("soft.engine_plan.cut", dev) as sp:
+            cut = cut_pairs(key, num_runs=(n * n) // tc, num_faces=faces_d.shape[0],
+                            tc=tc, tb_sub=tb_sub, tbl=tbl, sp=sp)
+            del key
+            sp.count("batches", cut["batch_run"].shape[0])
+        with span("soft.engine_plan.tables", dev) as sp:
+            self._setup_tables_d(soft_plan, faces_d, tc, tbl, cut, sp)
+        self.tile_mask_d = cut["counts"] > 0
+        self.run_start_d = cut["run_start"]
+        self.num_pairs = cut["num_pairs"]
+        self.num_fragments = cut["num_fragments"]
+
+    def __getattr__(self, name):
+        read = _HOST_COPIES.get(name)
+        if read is None:
+            raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+        value = self.__dict__[name] = read(self)
+        return value
+
+    @classmethod
+    def on_host(cls, soft_plan, device, tc: int = TILE_CELLS, tb_sub: int = 4,
+                tbl: int = 128):
+        """The plan built with NumPy on the host and uploaded, as voxtpu
+        builds it: the reference the device builder is held to."""
         n = soft_plan.spec.n
         if (n * n) % tc != 0:
             raise ValueError("n*n must divide tile cells")
@@ -591,14 +941,9 @@ class FusedSoftPlan(TablePlan):
         cells, faces, tile = cells[order], faces[order], tile[order]
         cut = _cut_batches(tile, faces, (cells % tc).astype(np.int32),
                            tb_sub=tb_sub, tbl=tbl)
-        batch_tile = cut["batch_key"].astype(np.int32)
-        tile_mask = np.zeros((n * n) // tc, bool)
-        if cells.size:
-            tile_mask[batch_tile[cut["nonempty"]]] = True
-        self._setup(soft_plan, device, tc, tbl, cut["cells_b"], cut["tblidx_b"],
-                    batch_tile, cut["table_face"].reshape(-1), tile_mask)
-        self.num_pairs = cut["num_pairs"]
-        self.num_fragments = int(cells.size)
+        return cls.from_layout(soft_plan, device, cut["cells_b"], cut["tblidx_b"],
+                               cut["batch_key"].astype(np.int32),
+                               cut["table_face"].reshape(-1), tc=tc)
 
     @classmethod
     def from_layout(cls, soft_plan, device, cells_b, tblidx_b, batch_tile,

@@ -26,7 +26,8 @@ the serving plan's ``vox.plan.candidates``, ``.windows``, ``.batches``
 and ``.upload`` (`ops/vox_slots_banded.py`), the soft plan
 ``soft.plan`` (`ops/soft_vox.py::make_soft_plan`, at a fit's build and
 at each refresh) and the engine's ``soft.engine_plan``
-(`models/fit.py`), and the JFA's ``jfa.unpack``, ``jfa.seed_init`` and
+(`models/fit.py`), with the fused plan's phases ``soft.engine_plan.cells``,
+``.cut`` and ``.tables`` inside it (`ops/soft_vox_fused.py`), and the JFA's ``jfa.unpack``, ``jfa.seed_init`` and
 ``jfa.flood`` (`ops/jfa.py`, `ops/jfa_cuda.py`). In a trace each is a
 range named ``voxtpu.<name>`` beside the kernels it launched.
 
