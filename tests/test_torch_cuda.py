@@ -150,9 +150,10 @@ def test_plan_on_the_card_equals_the_plan_on_the_cpu(dev, name, n, band):
 
 
 def _fused_plan_arrays(plan) -> dict:
-    out = {k: getattr(plan, k) for k in ("cells_d", "tblidx_d", "batch_tile_d", "run_start_d",
-                                         "tile_mask_d", "fidx_d", "faces_d", "expand_inv_d",
-                                         "vert_inv_d")}
+    keys = ("cells_d", "tblidx_d", "batch_tile_d", "run_start_d", "fidx_d", "faces_d",
+            "expand_inv_d", "vert_inv_d")
+    keys += ("batch_panel_d",) if hasattr(plan, "batch_panel_d") else ("tile_mask_d",)
+    out = {k: getattr(plan, k) for k in keys}
     for key in ("expand_cls_d", "vert_cls_d"):
         out.update({f"{key}{i}": c for i, c in enumerate(getattr(plan, key))})
     out["counters"] = torch.tensor([plan.num_batches, plan.num_pairs, plan.num_fragments,
@@ -160,21 +161,27 @@ def _fused_plan_arrays(plan) -> dict:
     return {k: v.cpu() for k, v in out.items()}
 
 
-def _check_fused_plan(card):
-    host = soft_vox_fused.FusedSoftPlan(card.soft_plan, "cpu")
+def _check_fused_plan(fit):
+    card = fit.engine_plan
+    if fit.engine == "seg":
+        host = soft_vox_seg.SegSoftPlan(card.soft_plan, fit._plan_coords.cpu(), "cpu")
+    else:
+        host = soft_vox_fused.FusedSoftPlan(card.soft_plan, "cpu")
     got, want = _fused_plan_arrays(card), _fused_plan_arrays(host)
     assert got.keys() == want.keys()
     for key in want:
         assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
 
 
-def test_fused_plan_on_the_card_equals_the_plan_on_the_cpu(dev):
-    """The fused engine's plan at 512^3 on the fit cells' torus, built on
-    the card (torch ops and C2) at a fit's start and again at its drift
-    refresh after 8 steps of the fit cells' traffic (lr 0.25 voxel),
-    equals the plan built on the CPU (the same ops and C2's plain
-    version), tensor for tensor and bit for bit: both passes of C2 once
-    a plan, four host reads a plan, the spans' CUDA events recorded."""
+@pytest.mark.parametrize("engine", ["fused", "seg"])
+def test_fused_plan_on_the_card_equals_the_plan_on_the_cpu(dev, engine):
+    """The fused (and the seg) engine's plan at 512^3 on the fit cells'
+    torus, built on the card (torch ops and C2) at a fit's start and
+    again at its drift refresh after 8 steps of the fit cells' traffic
+    (lr 0.25 voxel), equals the plan built on the CPU (the same ops and
+    C2's plain version), tensor for tensor and bit for bit: both passes
+    of C2 once a plan, four host reads a plan, the spans' CUDA events
+    recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     from voxtpu_torch.utils import trace as tr
@@ -193,20 +200,20 @@ def test_fused_plan_on_the_card_equals_the_plan_on_the_cpu(dev):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         fit = VoxelFit(plan, target, learning_rate=0.25 * vs, tau_edge_frac=0.5,
                        tau_x_frac=0.5, refresh_every=8, drift_limit_frac=0.5,
-                       engine="fused")
+                       engine=engine)
     records = [r for r in tr.recorded() if r.name.startswith("soft.engine_plan.")]
     tr.clear()
     assert (soft_vox_fused.pair_cut_counts.launches,
             soft_vox_fused.pair_cut.launches) == (cut[0] + 1, cut[1] + 1)
     assert len(records) == 3 and all(r.device_ms is not None for r in records)
     assert sum(r.counts.get("syncs", 0) for r in records) == 4
-    _check_fused_plan(fit.engine_plan)
+    _check_fused_plan(fit)
     built = fit.engine_plan.num_fragments
     state = fit.init(start)
     for _ in range(8):
         state, _ = fit.step(state)
     assert fit.refresh_count == 1 and fit.engine_plan.num_fragments > built
-    _check_fused_plan(fit.engine_plan)
+    _check_fused_plan(fit)
 
 
 @pytest.mark.parametrize("n,tc,tiles", [(64, 128, 3), (512, 128, 4), (4096, 128, 2)])

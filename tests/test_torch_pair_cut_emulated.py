@@ -6,8 +6,8 @@ warp a run, 32 pairs tested a vote (`__ballot_sync`), the first set bit
 ending the batch, the next batch's first slot by a shuffle, the count
 and write passes. Here the source is compiled with the host C++ compiler
 against `tests/cuda_emulation.h` and launched through its C entry
-points. Tolerance: bitwise, against the plain versions and against the
-NumPy cut the plan replaces (`_cut_batches`, voxtpu's loop), on
+points. Tolerance: bitwise, against the plain versions and against
+voxtpu's NumPy cut (`voxtpu.ops.soft_vox_fused._cut_batches`), on
 hand-made pairs (a tile of exactly tb slots and one of tb + 1, exactly
 tbl pairs and tbl + 1, batches that end on a load round's edge, empty
 tiles and one tile holding everything, a pair over tb) and on the pairs
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads under pytest-xdist)
+from voxtpu.ops import soft_vox_fused as J
 from voxtpu_torch import _build
 from voxtpu_torch.grids.voxel_grid import GridSpec
 from voxtpu_torch.mesh import procedural
@@ -75,12 +76,12 @@ def _cut(lib, csum, pbounds, *, tb, tbl):
 
 
 def _numpy_cut(csum, pbounds, *, tb, tbl):
-    """The cut the plan replaces (`_cut_batches`) on slots made from the
-    pairs (each pair's face its index) -> (batch_run, p0, p1)."""
+    """voxtpu's cut (`_cut_batches`) on slots made from the pairs (each
+    pair's face its index) -> (batch_run, p0, p1)."""
     sizes = np.diff(csum.numpy())
     run_of_pair = np.repeat(np.arange(pbounds.shape[0] - 1), np.diff(pbounds.numpy()))
     faces = np.repeat(np.arange(sizes.size), sizes)
-    cut = F._cut_batches(np.repeat(run_of_pair, sizes), faces, np.zeros(faces.size, np.int32),
+    cut = J._cut_batches(np.repeat(run_of_pair, sizes), faces, np.zeros(faces.size, np.int32),
                          tb_sub=tb // 128, tbl=tbl)
     table = cut["table_face"]
     p0 = table[:, 0]
@@ -89,7 +90,7 @@ def _numpy_cut(csum, pbounds, *, tb, tbl):
 
 
 def _check(lib, runs, *, tb, tbl):
-    """The kernel's passes bitwise their plain versions and the NumPy
+    """The kernel's passes bitwise their plain versions and voxtpu's
     cut; returns the batches as (run, p0, p1) rows."""
     csum, pbounds = _pairs(runs)
     counts, off, got = _cut(lib, csum, pbounds, tb=tb, tbl=tbl)
@@ -154,7 +155,7 @@ def test_pair_cut_source_on_empty_runs_and_one_run_holding_all(lib, tb, tbl):
 
 def test_pair_cut_source_marks_a_pair_over_tb(lib):
     """A pair of tb + 1 slots fits no batch: the count pass writes -1 for
-    its run (and only its run), as the plain version does, the NumPy cut
+    its run (and only its run), as the plain version does, voxtpu's cut
     raises, and so does the plan's cut."""
     tb, tbl = 128, 128
     csum, pbounds = _pairs([[5, 6], [3, tb + 1, 2], [tb]])

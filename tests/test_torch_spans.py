@@ -1,6 +1,6 @@
 """The port's spans (`utils/trace.py::span`) on the CPU: the gate, the
 bounded store, and the phases that the serving plan, the JFA, the fused
-plan and a fit's plan refresh record under `torch.profiler`."""
+and seg plans and a fit's plan refresh record under `torch.profiler`."""
 
 import glob
 import json
@@ -22,6 +22,7 @@ from voxtpu_torch.ops.jfa import jfa
 from voxtpu_torch.ops.reference import voxelize_ref
 from voxtpu_torch.ops.soft_vox import make_soft_plan
 from voxtpu_torch.ops.soft_vox_fused import FusedSoftPlan
+from voxtpu_torch.ops.soft_vox_seg import SegSoftPlan
 from voxtpu_torch.ops.vox_slots_banded import BandedSlotVoxPipeline
 from voxtpu_torch.utils import trace as tr
 
@@ -213,8 +214,37 @@ def test_fused_plan_records_its_three_phases(layout):
     assert records[2].counts == {"host_bytes": 9 * 8 + 8 * hist, "syncs": 2}
     assert plan.num_batches > len(set(plan.batch_tile.tolist())) > 1
     # The spans change nothing of the plan.
-    ref = FusedSoftPlan.on_host(sp, "cpu", **layout)
+    ref = FusedSoftPlan(sp, "cpu", **layout)
     for attr in ("cells_d", "tblidx_d", "batch_tile_d", "run_start_d", "fidx_d"):
+        assert torch.equal(getattr(plan, attr), getattr(ref, attr)), attr
+
+
+def test_seg_plan_records_its_three_phases():
+    """The seg plan's phases are the fused plan's: the faces and one
+    int64 key a slot on the way up; the same four reads on the way
+    back, counted on the same spans. The spans change nothing of it."""
+    mesh = _mesh("icosphere")
+    side = float(np.ptp(mesh.coords, axis=0).max())
+    spec = GridSpec(n=256, origin=tuple(float(v) - 0.1 * side for v in mesh.coords.min(0)),
+                    voxel_size=side / 64.0)
+    sp = make_soft_plan(mesh, spec)
+    tr.clear()
+    with _profiled():
+        plan = SegSoftPlan(sp, mesh.coords, "cpu")
+    records = [r for r in tr.recorded() if r.name.startswith("soft.engine_plan.")]
+    assert [r.name for r in records] == ENGINE_PHASES
+    assert all(r.parent is None and r.device_ms is None for r in records)
+    for a, b in zip(records, records[1:]):
+        assert a.t0 <= a.t1 <= b.t0 <= b.t1
+    assert records[0].counts == {"host_bytes": 8 * plan.num_fragments + mesh.faces.size * 4}
+    assert records[1].counts == {"host_bytes": 2 * 8 + 3 * 8, "syncs": 2,
+                                 "batches": plan.num_batches}
+    hist = plan.expand_cls[-1].shape[0] + 1 + plan.vert_cls[-1].shape[0] + 1
+    assert records[2].counts == {"host_bytes": 9 * 8 + 8 * hist, "syncs": 2}
+    assert plan.num_batches >= plan.num_runs > len(set(plan.batch_tile.tolist())) > 1
+    ref = SegSoftPlan(sp, mesh.coords, "cpu")
+    for attr in ("cells_d", "tblidx_d", "batch_tile_d", "batch_panel_d", "run_start_d",
+                 "fidx_d"):
         assert torch.equal(getattr(plan, attr), getattr(ref, attr)), attr
 
 

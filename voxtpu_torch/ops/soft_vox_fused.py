@@ -19,7 +19,7 @@ of columns and take the saturated columns without it (the note in
 `csrc/soft_vox.cu`): B7's output is bitwise the full-row sum's, B8 reads
 the saturated columns' cotangent sum from a float64 row prefix.
 
-Two gather-only "classed" reductions (`_build_classed_reduction`,
+Two gather-only "classed" reductions (`_ClassedLayout`,
 `_classed_reduce`) carry the table cotangents back to the triangles and
 the triangles' to the vertices: a deterministic, atomic-free segment
 sum in voxtpu's own summation order (`index_add_` on CUDA would sum
@@ -42,10 +42,11 @@ kernel C2 (`csrc/soft_plan.cu`, `pair_cut_counts`, `pair_cut`), which
 replaces voxtpu's host loop. Four host reads a plan (the slot and pair
 totals; the batch total; the layouts' largest counts with the plan's
 range checks; their histograms), counted on the spans
-``soft.engine_plan.cells``, ``.cut`` and ``.tables``. Every array is
-the NumPy builder's (`FusedSoftPlan.on_host`, voxtpu's, which the seg
-and cuda engines' plans still use) value for value; a CPU device runs
-the same code with C2's plain version.
+``soft.engine_plan.cells``, ``.cut`` and ``.tables``. The seg engine's
+plan (`ops/soft_vox_seg.py`) cuts and sets up its tables with the same
+`cut_pairs` and `TablePlan`, on its own run keys. Every array is
+voxtpu's value for value; a CPU device runs the same code with C2's
+plain version.
 """
 
 from __future__ import annotations
@@ -58,8 +59,7 @@ from voxtpu_torch.ops.soft_vox import (CHUNK_ELEMS, clip01, f32, profile_add,
                                        profile_grid, profile_out, profile_sums,
                                        temperatures, x_centers)
 from voxtpu_torch.ops.vox_cuda import TB_LANE, TILE_CELLS, _check_range
-from voxtpu_torch.ops.vox_slots_banded import _read, _upload
-from voxtpu_torch.utils.trace import span
+from voxtpu_torch.utils.trace import NULL_SPAN, _read, _upload, span
 
 NATTR = 16
 NGRAD = 13  # coefficient cotangents per slot (rows 13..15 stay zero)
@@ -301,39 +301,6 @@ fused_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _build_classed_reduction(item_ids: np.ndarray, num_targets: int):
-    """Static layout for an exact gather-based segment reduction
-    (`soft_vox_fused.py:495-524`).
-
-    item_ids (S,): target id per source row (< 0 = contributes nowhere).
-    Returns (cls_pos, inv): `cls_pos` a tuple of (c, Tc) int32 position
-    tables — the Tc targets with exactly c sources, listing their source
-    rows; `inv` (num_targets,) int32 maps each target to its row in the
-    concatenated per-class output (targets with no source map to the
-    appended zero row)."""
-    item_ids = np.asarray(item_ids)
-    order = np.argsort(item_ids, kind="stable")
-    ids_sorted = item_ids[order]
-    v0 = int(np.searchsorted(ids_sorted, 0))
-    vo = order[v0:].astype(np.int64)
-    vi = ids_sorted[v0:]
-    starts = np.searchsorted(vi, np.arange(num_targets + 1))
-    counts = np.diff(starts)
-    cls_pos, targ_order = [], []
-    for c in sorted(set(counts[counts > 0].tolist())):
-        t_c = np.nonzero(counts == c)[0]
-        pos = np.empty((c, t_c.size), np.int32)
-        for j in range(c):
-            pos[j] = vo[starts[t_c] + j]
-        cls_pos.append(pos)
-        targ_order.append(t_c)
-    nonzero = (np.concatenate(targ_order) if targ_order
-               else np.zeros(0, np.int64))
-    inv = np.full(num_targets, nonzero.size, np.int32)  # -> zero row
-    inv[nonzero] = np.arange(nonzero.size, dtype=np.int32)
-    return tuple(cls_pos), inv
-
-
 def _classed_reduce(g: torch.Tensor, cls_pos, inv: torch.Tensor) -> torch.Tensor:
     """Sum source rows of `g` per target (`soft_vox_fused.py:527-537`):
     exact row counts, short sums in source order, one reassembly gather.
@@ -406,90 +373,8 @@ class _FusedAccumulate(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Plan (static host layout) and entry point
+# Plan helpers on the host: run bounds, the soft plan's candidate cells
 # ---------------------------------------------------------------------------
-
-
-def _cut_batches(run_key, faces, local, *, tb_sub: int, tbl: int):
-    """Greedy batch layout (`soft_vox_fused.py:596-696`, without the
-    FIRST/LAST flags of the TPU's sequential grid).
-
-    Per-slot inputs are pre-sorted by (run_key, faces): batches never
-    span two keys and hold <= tb_sub * 128 slots and <= tbl unique
-    triangles (pairs = unique (run_key, face) runs = table rows).
-    Returns dict(batch_key, nonempty, cells_b, tblidx_b, table_face,
-    num_pairs)."""
-    tb = tb_sub * TB_LANE
-    f_total = run_key.shape[0]
-    if f_total:
-        newpair = np.empty(f_total, bool)
-        newpair[0] = True
-        newpair[1:] = (run_key[1:] != run_key[:-1]) | (faces[1:] != faces[:-1])
-        pair_start = np.nonzero(newpair)[0]
-        pair_end = np.append(pair_start[1:], f_total)
-        pair_run = run_key[pair_start]
-        pair_face = faces[pair_start]
-        pair_size = pair_end - pair_start
-    else:
-        newpair = np.zeros((0,), bool)
-        pair_start = pair_end = pair_run = pair_face = pair_size = (
-            np.zeros((0,), np.int64))
-    num_pairs = pair_start.size
-
-    if num_pairs:
-        run_starts = np.nonzero(
-            np.concatenate([[True], pair_run[1:] != pair_run[:-1]]))[0]
-        run_ends = np.append(run_starts[1:], num_pairs)
-        run_k = pair_run[run_starts]
-        csum = np.concatenate([[0], np.cumsum(pair_size)])
-        cur = run_starts.copy()
-        bk_l, p0_l, p1_l = [], [], []
-        open_m = cur < run_ends
-        while open_m.any():
-            c = cur[open_m]
-            j_slots = np.searchsorted(csum, csum[c] + tb, side="right") - 1
-            j = np.minimum(np.minimum(j_slots, c + tbl), run_ends[open_m])
-            if not (j > c).all():
-                raise AssertionError("pair exceeds batch capacity")
-            bk_l.append(run_k[open_m])
-            p0_l.append(c)
-            p1_l.append(j)
-            cur[open_m] = j
-            open_m = cur < run_ends
-        batch_p0 = np.concatenate(p0_l)
-        batch_p1 = np.concatenate(p1_l)
-        batch_key = np.concatenate(bk_l)
-        order_b = np.argsort(batch_p0, kind="stable")
-        batch_p0 = batch_p0[order_b]
-        batch_p1 = batch_p1[order_b]
-        batch_key = batch_key[order_b]
-    else:
-        batch_p0 = batch_p1 = np.zeros((1,), np.int64)
-        batch_key = np.zeros((1,), run_key.dtype)
-    bcount = batch_p0.size
-
-    cells_b = np.full((bcount, tb), -1, np.int32)
-    tblidx_b = np.zeros((bcount, tb), np.int32)
-    table_face = np.full((bcount, tbl), -1, np.int32)
-    if f_total:
-        pidx = np.cumsum(newpair, dtype=np.int32) - 1  # pair id per slot
-        b_of_pair = np.searchsorted(batch_p0, np.arange(num_pairs),
-                                    side="right") - 1
-        fb = b_of_pair[pidx]
-        fstart_b = pair_start[batch_p0]
-        slot = np.arange(f_total) - fstart_b[fb]
-        cells_b[fb, slot] = local
-        tblidx_b[fb, slot] = (pidx - batch_p0[fb]).astype(np.int32)
-        tslot = np.arange(num_pairs) - batch_p0[b_of_pair]
-        table_face[b_of_pair, tslot] = pair_face
-    return dict(
-        batch_key=batch_key,
-        nonempty=batch_p1 > batch_p0,
-        cells_b=cells_b.reshape(bcount, tb_sub, TB_LANE),
-        tblidx_b=tblidx_b.reshape(bcount, tb_sub, TB_LANE),
-        table_face=table_face,
-        num_pairs=int(num_pairs),
-    )
 
 
 def tile_runs(batch_tile: np.ndarray) -> np.ndarray:
@@ -564,7 +449,8 @@ def slot_keys(soft_plan, run_of, *, tc: int, sp, device) -> torch.Tensor:
 
 
 def _cut_rounds(csum: np.ndarray, pbounds: np.ndarray, *, tb: int, tbl: int):
-    """`_cut_batches`' greedy loop on every run at once (host arrays):
+    """voxtpu's greedy batch loop (`soft_vox_fused.py:633-661`) on every
+    run at once (host arrays):
     yields each round's (runs, first pairs, end pairs). A run whose next
     pair alone exceeds `tb` slots gets end == first and closes."""
     runs = np.flatnonzero(np.diff(pbounds))
@@ -656,7 +542,8 @@ pair_cut.launches = 0
 
 def cut_pairs(key: torch.Tensor, *, num_runs: int, num_faces: int, tc: int,
               tb_sub: int, tbl: int, sp) -> dict:
-    """`_cut_batches` on the device, from `slot_keys`' sorted keys (runs
+    """voxtpu's greedy batch layout (`soft_vox_fused.py:596-696`) on the
+    device, from sorted slot keys (`slot_keys`' or the seg plan's; runs
     in [0, num_runs)): dict(num_fragments, num_pairs, counts (num_runs,)
     int32 batches a run, cells_b and tblidx_b (B, tb_sub, 128) int32,
     batch_run (B,) int32, table_face (B * tbl,) int32, run_start (R + 1,)
@@ -725,13 +612,18 @@ def cut_pairs(key: torch.Tensor, *, num_runs: int, num_faces: int, tc: int,
 
 
 class _ClassedLayout:
-    """`_build_classed_reduction` on the device, in the steps between its
-    two host reads, which the caller makes (a plan's two layouts share
-    them): the sources sorted by target (stable), each target's first
-    source and count, and the largest count (`most`); the histogram of
-    the counts; then the class tables (one gather a class) and `inv`.
+    """The static layout of an exact gather-based segment reduction
+    (voxtpu's, `soft_vox_fused.py:495-524`) on the device, in the steps
+    between its two host reads, which the caller makes (a plan's two
+    layouts share them): the sources sorted by target (stable), each
+    target's first source and count, and the largest count (`most`);
+    the histogram of the counts; then the class tables (one gather a
+    class) and `inv`. `tables` gives (cls_pos, inv): `cls_pos` a (c, Tc)
+    table for the Tc targets with exactly c sources, listing their
+    source rows; `inv` maps each target to its row in the concatenated
+    per-class output (targets with no source to the appended zero row).
     Targets stay ascending within a class and sources in their stable
-    order, so the tables are the NumPy layout's value for value (int64)."""
+    order, so the tables are voxtpu's value for value (int64)."""
 
     def __init__(self, ids: torch.Tensor, num_targets: int):
         ids_sorted, self.order = torch.sort(ids, stable=True)
@@ -763,39 +655,46 @@ class _ClassedLayout:
 
 
 class TablePlan:
-    """A slot layout (`cells_b`, `tblidx_b`, `batch_tile`) with its
-    per-batch triangle tables (`table_face_flat`) and the classed
-    reductions behind `tables_of`, on `device`: what the fused and seg
-    plans share."""
+    """A slot layout (`cells_d`, `tblidx_d`, `batch_tile_d`) with its
+    per-batch triangle tables (`fidx_d`) and the classed reductions
+    behind `tables_of`, on `device`: what the fused and seg plans share,
+    set up once, on the device, by `_setup_tables_d`.
 
-    def _setup_tables_d(self, soft_plan, faces_d, tc, tbl, cut, sp):
-        """`_setup_tables` on the device, from `cut_pairs`' layout and the
-        faces (T, 3) on the plan's device: the tensors the per-call path
-        reads, none on the host. Two host reads, counted on the span
-        `sp`: both classed layouts' largest counts with the range checks'
-        least and largest values and the batches out of tile order; the
-        layouts' histograms."""
+    The host arrays keep voxtpu's names (`cells_b`, `tblidx_b`,
+    `batch_tile`, `table_face_flat`, `tile_mask`, the classed tables
+    `expand_cls`, `expand_inv`, `vert_cls`, `vert_inv`, and the seg
+    plan's `batch_panel` and `run_start`): each is read from the device
+    on first use (`_HOST_COPIES`)."""
+
+    def _setup_tables_d(self, soft_plan, faces_d, cells_d, tblidx_d, batch_tile_d,
+                        table_face_d, *, tc: int, tbl: int, sp):
+        """The tables of a slot layout on the device: `cells_d`, `tblidx_d`
+        (B, tb_sub, 128) int32, `batch_tile_d` (B,) int32, `table_face_d`
+        (B * tbl,) int32 (-1 = no triangle) and the faces (T, 3) on the
+        plan's device. Two host reads, counted on the span `sp`: both
+        classed layouts' largest counts with the range checks' least and
+        largest values and the batches out of tile order; the layouts'
+        histograms."""
         spec = soft_plan.spec
+        _check_fwd_smem(tc, cells_d[0].numel())
         self.spec = spec
         self.soft_plan = soft_plan
         self.tc, self.tbl = tc, tbl
         self.device = faces_d.device
-        self.cells_d, self.tblidx_d = cut["cells_b"], cut["tblidx_b"]
-        self.batch_tile_d = cut["batch_run"]
-        self.tb_sub = self.cells_d.shape[1]
-        self.num_batches = self.batch_tile_d.shape[0]
+        self.cells_d, self.tblidx_d, self.batch_tile_d = cells_d, tblidx_d, batch_tile_d
+        self.tb_sub = cells_d.shape[1]
+        self.num_batches = batch_tile_d.shape[0]
         self.num_faces = int(faces_d.shape[0])
         self.num_vertices = int(np.asarray(soft_plan.faces_array).max(initial=-1)) + 1
-        table_face = cut["table_face"]
-        self.fidx_d = torch.where(table_face < 0, self.num_faces, table_face).long()
+        self.fidx_d = torch.where(table_face_d < 0, self.num_faces, table_face_d).long()
         self.faces_d = faces_d.long()
-        expand = _ClassedLayout(table_face, self.num_faces)
+        expand = _ClassedLayout(table_face_d, self.num_faces)
         vert = _ClassedLayout(self.faces_d.view(-1), self.num_vertices)
-        checked = (("batch_tile", self.batch_tile_d, 0, (spec.n * spec.n) // tc),
-                   ("tblidx_b", self.tblidx_d, 0, tbl), ("cells_b", self.cells_d, -1, tc))
+        checked = (("batch_tile", batch_tile_d, 0, (spec.n * spec.n) // tc),
+                   ("tblidx_b", tblidx_d, 0, tbl), ("cells_b", cells_d, -1, tc))
         got = _read(sp, torch.cat([expand.most, vert.most] + [
             torch.stack(torch.aminmax(t)).long() for _, t, _, _ in checked] + [
-            (self.batch_tile_d.diff() < 0).sum().view(1)]))
+            (batch_tile_d.diff() < 0).sum().view(1)]))
         for i, (name, _, lo, hi) in enumerate(checked):
             _check_range(got[2 + 2 * i:4 + 2 * i], name, lo, hi)
         if got[-1]:  # `tile_runs`' check: the forward kernels take one run a tile
@@ -805,51 +704,29 @@ class TablePlan:
         self.expand_cls_d, self.expand_inv_d = expand.tables(hist[:most_e + 1])
         self.vert_cls_d, self.vert_inv_d = vert.tables(hist[most_e + 1:])
 
-    def _setup_tables(self, soft_plan, device, tc, tbl, cells_b, tblidx_b,
-                      batch_tile, table_face_flat):
-        spec = soft_plan.spec
-        self.spec = spec
-        self.soft_plan = soft_plan
-        self.tc, self.tbl = tc, tbl
-        self.cells_b = np.asarray(cells_b, np.int32)
-        self.tb_sub = self.cells_b.shape[1]
-        self.tblidx_b = np.asarray(tblidx_b, np.int32)
-        self.batch_tile = np.asarray(batch_tile, np.int32)
-        self.num_batches = self.batch_tile.shape[0]
-        self.table_face_flat = np.asarray(table_face_flat, np.int32)
-        faces = np.asarray(soft_plan.faces_array)
-        self.num_faces = int(faces.shape[0])
-        _check_range(self.batch_tile, "batch_tile", 0, (spec.n * spec.n) // tc)
-        _check_range(self.tblidx_b, "tblidx_b", 0, tbl)
-        _check_range(self.cells_b, "cells_b", -1, tc)
-        _check_fwd_smem(tc, self.cells_b[0].size)
-
-        # Classed slot -> face reduction (expand backward) and classed
-        # (face, corner) -> vertex reduction (coords backward).
-        self.expand_cls, self.expand_inv = _build_classed_reduction(
-            self.table_face_flat, self.num_faces)
-        faces_flat = faces.reshape(-1)
-        self.num_vertices = int(faces_flat.max(initial=-1)) + 1
-        self.vert_cls, self.vert_inv = _build_classed_reduction(
-            faces_flat, self.num_vertices)
-
+    @classmethod
+    def _on_layout(cls, soft_plan, device, cells_b, tblidx_b, batch_tile, table_face_flat,
+                   tc: int):
+        """A plan of `cls` on a given host slot layout, uploaded and set up
+        as a built plan's tables are; the caller adds its runs."""
+        plan = object.__new__(cls)
         dev = torch.empty(0, device=device).device
-        self.device = dev
-        fidx = np.where(self.table_face_flat < 0, self.num_faces,
-                        self.table_face_flat)
-        self.cells_d = self._to_device(self.cells_b, torch.int32)
-        self.tblidx_d = self._to_device(self.tblidx_b, torch.int32)
-        self.batch_tile_d = self._to_device(self.batch_tile, torch.int32)
-        self.fidx_d = self._to_device(fidx, torch.int64)
-        self.faces_d = self._to_device(faces, torch.int64)
-        self.expand_cls_d = tuple(self._to_device(p, torch.int64)
-                                  for p in self.expand_cls)
-        self.expand_inv_d = self._to_device(self.expand_inv, torch.int64)
-        self.vert_cls_d = tuple(self._to_device(p, torch.int64) for p in self.vert_cls)
-        self.vert_inv_d = self._to_device(self.vert_inv, torch.int64)
+        cells_b = np.asarray(cells_b, np.int32)
+        table_face = np.asarray(table_face_flat, np.int32).reshape(-1)
+        up = [_upload(NULL_SPAN, a, dev, np.int32)
+              for a in (soft_plan.faces_array, cells_b, tblidx_b, batch_tile, table_face)]
+        plan._setup_tables_d(soft_plan, *up, tc=tc,
+                             tbl=table_face.size // max(cells_b.shape[0], 1), sp=NULL_SPAN)
+        plan.num_pairs = int((table_face >= 0).sum())
+        plan.num_fragments = int((cells_b >= 0).sum())
+        return plan
 
-    def _to_device(self, a, dtype) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
+    def __getattr__(self, name):
+        read = _HOST_COPIES.get(name)
+        if read is None:
+            raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+        value = self.__dict__[name] = read(self)
+        return value
 
     def prm(self, tau_edge_frac: float, tau_x_frac: float):
         """The kernels' float32 parameters (ox, oy, oz, vs, tau_e, tau_x)."""
@@ -861,8 +738,8 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-# A plan built on the device keeps its host arrays (voxtpu's names, which
-# the tests read) on the device: each is read on first use.
+# A plan's host arrays under voxtpu's names, each read from its device
+# tensor on first use.
 _HOST_COPIES = {
     "cells_b": lambda p: _host(p.cells_d),
     "tblidx_b": lambda p: _host(p.tblidx_d),
@@ -874,6 +751,8 @@ _HOST_COPIES = {
     "expand_inv": lambda p: _host(p.expand_inv_d).astype(np.int32),
     "vert_cls": lambda p: tuple(_host(c).astype(np.int32) for c in p.vert_cls_d),
     "vert_inv": lambda p: _host(p.vert_inv_d).astype(np.int32),
+    "batch_panel": lambda p: _host(p.batch_panel_d),
+    "run_start": lambda p: _host(p.run_start_d),
 }
 
 
@@ -888,11 +767,7 @@ class FusedSoftPlan(TablePlan):
     phases are the spans ``soft.engine_plan.cells`` (the upload, the
     slot keys and their sort), ``.cut`` (the pairs, C2, the slot
     scatters; counts `batches`) and ``.tables`` (the classed layouts),
-    each counting its `host_bytes` and `syncs`. The host arrays keep
-    voxtpu's names (`cells_b`, `tblidx_b`, `batch_tile`, `tile_mask`,
-    `table_face_flat`, the classed-reduction tables), read from the
-    device on first use; `on_host` builds them with NumPy, as voxtpu
-    does."""
+    each counting its `host_bytes` and `syncs`."""
 
     def __init__(self, soft_plan, device, tc: int = TILE_CELLS,
                  tb_sub: int = 4, tbl: int = 128):
@@ -911,63 +786,26 @@ class FusedSoftPlan(TablePlan):
             del key
             sp.count("batches", cut["batch_run"].shape[0])
         with span("soft.engine_plan.tables", dev) as sp:
-            self._setup_tables_d(soft_plan, faces_d, tc, tbl, cut, sp)
+            self._setup_tables_d(soft_plan, faces_d, cut["cells_b"], cut["tblidx_b"],
+                                 cut["batch_run"], cut["table_face"], tc=tc, tbl=tbl, sp=sp)
         self.tile_mask_d = cut["counts"] > 0
         self.run_start_d = cut["run_start"]
         self.num_pairs = cut["num_pairs"]
         self.num_fragments = cut["num_fragments"]
 
-    def __getattr__(self, name):
-        read = _HOST_COPIES.get(name)
-        if read is None:
-            raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
-        value = self.__dict__[name] = read(self)
-        return value
-
-    @classmethod
-    def on_host(cls, soft_plan, device, tc: int = TILE_CELLS, tb_sub: int = 4,
-                tbl: int = 128):
-        """The plan built with NumPy on the host and uploaded, as voxtpu
-        builds it: the reference the device builder is held to."""
-        n = soft_plan.spec.n
-        if (n * n) % tc != 0:
-            raise ValueError("n*n must divide tile cells")
-        cells, faces = slot_cells(soft_plan, n)
-        keep = cells >= 0
-        cells = cells[keep]
-        faces = faces[keep].astype(np.int32)
-        tile = cells // tc
-        order = np.lexsort((cells, faces, tile))
-        cells, faces, tile = cells[order], faces[order], tile[order]
-        cut = _cut_batches(tile, faces, (cells % tc).astype(np.int32),
-                           tb_sub=tb_sub, tbl=tbl)
-        return cls.from_layout(soft_plan, device, cut["cells_b"], cut["tblidx_b"],
-                               cut["batch_key"].astype(np.int32),
-                               cut["table_face"].reshape(-1), tc=tc)
-
     @classmethod
     def from_layout(cls, soft_plan, device, cells_b, tblidx_b, batch_tile,
                     table_face_flat, tc: int = TILE_CELLS):
         """A plan on a given slot layout (voxtpu's, in the tests)."""
-        plan = object.__new__(cls)
-        cells_b = np.asarray(cells_b, np.int32)
-        tbl = np.asarray(table_face_flat).size // max(cells_b.shape[0], 1)
+        plan = cls._on_layout(soft_plan, device, cells_b, tblidx_b, batch_tile,
+                              table_face_flat, tc)
         n = soft_plan.spec.n
-        tile_mask = np.zeros((n * n) // tc, bool)
-        live = (cells_b >= 0).reshape(cells_b.shape[0], -1).any(1)
-        tile_mask[np.asarray(batch_tile)[live]] = True
-        plan._setup(soft_plan, device, tc, tbl, cells_b, tblidx_b, batch_tile,
-                    table_face_flat, tile_mask)
-        plan.num_pairs = int((np.asarray(table_face_flat) >= 0).sum())
-        plan.num_fragments = int((cells_b >= 0).sum())
+        live = (plan.cells_d >= 0).flatten(1).any(1)
+        plan.tile_mask_d = torch.zeros((n * n) // tc, dtype=torch.int32,
+                                       device=plan.device).index_add_(
+            0, plan.batch_tile_d.long(), live.int()) > 0
+        plan.run_start_d = _upload(NULL_SPAN, tile_runs(batch_tile), plan.device)
         return plan
-
-    def _setup(self, soft_plan, device, tc, tbl, cells_b, tblidx_b,
-               batch_tile, table_face_flat, tile_mask):
-        self._setup_tables(soft_plan, device, tc, tbl, cells_b, tblidx_b,
-                           batch_tile, table_face_flat)
-        self.tile_mask = tile_mask
-        self.run_start_d = self._to_device(tile_runs(self.batch_tile), torch.int32)
 
 
 def tables_of(coords: torch.Tensor, plan: TablePlan) -> torch.Tensor:

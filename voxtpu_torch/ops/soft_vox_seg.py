@@ -48,11 +48,11 @@ import torch
 from voxtpu_torch import _build
 from voxtpu_torch.ops.soft_vox import CHUNK_ELEMS, clip01
 from voxtpu_torch.ops.soft_vox_fused import (_SMEM_MAX, TablePlan, _check_fused,
-                                             _cut_batches, chain_rule,
-                                             fused_fwd_smem_bytes, slot_cells,
-                                             slot_fragment, slot_rows, table_add,
-                                             table_grid, tables_of, tile_runs)
+                                             chain_rule, cut_pairs, fused_fwd_smem_bytes,
+                                             slot_cells, slot_fragment, slot_rows,
+                                             table_add, table_grid, tables_of, tile_runs)
 from voxtpu_torch.ops.vox_cuda import _check_range
+from voxtpu_torch.utils.trace import NULL_SPAN, _upload, span
 
 PANEL = 128          # sigmoid panel width (columns)
 LATTICE = 64         # panel placement granularity
@@ -348,7 +348,7 @@ class _SegAccumulate(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Plan (static host layout) and entry point
+# Plan and entry point
 # ---------------------------------------------------------------------------
 
 
@@ -358,13 +358,19 @@ class SegSoftPlan(TablePlan):
 
     Built from a soft plan and the coordinates it was built against:
     each in-grid candidate's x_hit, evaluated here on the host in
-    float32, assigns its panel. Slots are sorted by (tile * n + p0,
-    face), stably, so a (run, face) pair keeps `slot_cells`' order, and
-    cut into batches by the fused engine's `_cut_batches`. The host
-    arrays keep voxtpu's names (`batch_tile`, `batch_panel`, `cells_b`,
-    `tblidx_b`, `table_face_flat`); the tensors the per-call path reads
-    end in ``_d``, and `run_start_d` bounds the runs of equal (tile,
-    panel) keys. `tables_of` and `prm` are the fused plan's."""
+    float32, assigns its panel p0 (a multiple of LATTICE), and the
+    slot's run is its (tile, panel) key (tile * n + p0) / LATTICE. The
+    slots go up
+    as int64 keys (run * num_faces + face) * tc + local, are sorted
+    there (stably) and cut by the fused plan's `cut_pairs` (C2), and
+    `TablePlan` sets up the tables, all on the device, in the fused
+    plan's three spans (``soft.engine_plan.cells``, ``.cut``,
+    ``.tables``). A face has one row and no repeated cell, and `local`
+    is z-major within a tile, so a (run, face) pair keeps `slot_cells`'
+    order. The tensors the per-call path reads end in ``_d``; the host
+    arrays keep voxtpu's names (`TablePlan`; here also `batch_panel` and
+    `run_start`, whose `run_start_d` bounds the runs of equal (tile,
+    panel) keys). `tables_of` and `prm` are the fused plan's."""
 
     def __init__(self, soft_plan, coords, device, tc: int = 128, tb_sub: int = 4,
                  tbl: int = 128, tz: int = 8):
@@ -374,68 +380,70 @@ class SegSoftPlan(TablePlan):
         spec = soft_plan.spec
         vs = np.float32(spec.voxel_size)
         org = np.asarray(spec.origin, np.float32)
-        fp, fq, fr, _ = _xplane(_host(coords), np.asarray(soft_plan.faces_array))
-
-        cells, faces = slot_cells(soft_plan, n)
-        keep = cells >= 0
-        # int32 throughout: tile * n + p0 < n^3 / tc < 2^31 for n <= 4096.
-        ys = (cells[keep] % n).astype(np.int32)
-        zs = (cells[keep] // n).astype(np.int32)
-        faces = faces[keep].astype(np.int32)
-        cy = org[1] + (ys.astype(np.float32) * vs + vs * 0.5)
-        cz = org[2] + (zs.astype(np.float32) * vs + vs * 0.5)
-        xh = fp[faces] - fq[faces] * cy - fr[faces] * cz
-        xv = (xh - org[0]) / vs
-        # Near-edge-on faces have finite Q, R ~ 1e18: clip to a castable
-        # range; any x_hit beyond the grid saturates either way.
-        xv = np.clip(np.nan_to_num(xv, nan=0.0), -1e9, 1e9)
-        p0 = np.clip(
-            np.floor((xv - np.float32(MARGIN)) / np.float32(LATTICE))
-            .astype(np.int32) * LATTICE, 0, n - PANEL).astype(np.int32)
-        tile = (zs // tz) * (n // ty) + ys // ty
-        local = ((zs % tz) * ty + ys % ty).astype(np.int32)
-        runkey = tile * np.int32(n) + p0
-        order = np.lexsort((faces, runkey))
-        cut = _cut_batches(runkey[order], faces[order], local[order],
-                           tb_sub=tb_sub, tbl=tbl)
-        key = cut["batch_key"]
-        self._setup_seg(soft_plan, coords, device, tc, tz, tbl,
-                        (key // n).astype(np.int32), (key % n).astype(np.int32),
-                        cut["cells_b"], cut["tblidx_b"], cut["table_face"].reshape(-1))
+        num_faces = len(soft_plan.faces_array)
+        dev = torch.empty(0, device=device).device
+        with span("soft.engine_plan.cells", dev) as sp:
+            fp, fq, fr, _ = _xplane(_host(coords), np.asarray(soft_plan.faces_array))
+            cells, faces = slot_cells(soft_plan, n)
+            keep = cells >= 0
+            # int32 throughout: tile * n + p0 < n^3 / tc < 2^31 for n <= 4096.
+            ys = (cells[keep] % n).astype(np.int32)
+            zs = (cells[keep] // n).astype(np.int32)
+            faces = faces[keep]
+            cy = org[1] + (ys.astype(np.float32) * vs + vs * 0.5)
+            cz = org[2] + (zs.astype(np.float32) * vs + vs * 0.5)
+            xh = fp[faces] - fq[faces] * cy - fr[faces] * cz
+            xv = (xh - org[0]) / vs
+            # Near-edge-on faces have finite Q, R ~ 1e18: clip to a castable
+            # range; any x_hit beyond the grid saturates either way.
+            xv = np.clip(np.nan_to_num(xv, nan=0.0), -1e9, 1e9)
+            p0 = np.clip(
+                np.floor((xv - np.float32(MARGIN)) / np.float32(LATTICE))
+                .astype(np.int32) * LATTICE, 0, n - PANEL).astype(np.int32)
+            tile = (zs // tz) * (n // ty) + ys // ty
+            local = (zs % tz) * ty + ys % ty
+            run = (tile * np.int32(n) + p0) // LATTICE
+            faces_d = _upload(sp, soft_plan.faces_array, dev, np.int32)
+            key = _upload(sp, (run.astype(np.int64) * num_faces + faces) * tc + local, dev)
+            key = torch.sort(key, stable=True).values
+        with span("soft.engine_plan.cut", dev) as sp:
+            cut = cut_pairs(key, num_runs=(n * n // tc) * (n // LATTICE),
+                            num_faces=num_faces, tc=tc, tb_sub=tb_sub, tbl=tbl, sp=sp)
+            del key
+            sp.count("batches", cut["batch_run"].shape[0])
+        with span("soft.engine_plan.tables", dev) as sp:
+            runkey = cut["batch_run"] * LATTICE  # tile * n + p0
+            self._setup_tables_d(soft_plan, faces_d, cut["cells_b"], cut["tblidx_b"],
+                                 runkey // n, cut["table_face"], tc=tc, tbl=tbl, sp=sp)
+        self.tz = tz
+        self.batch_panel_d = runkey % n
+        self.run_start_d = cut["run_start"]
+        self.num_runs = self.run_start_d.shape[0] - 1
         self.num_pairs = cut["num_pairs"]
-        self.num_fragments = int(ys.size)
+        self.num_fragments = cut["num_fragments"]
+        self._snapshot(soft_plan, coords)
 
     @classmethod
     def from_layout(cls, soft_plan, device, batch_tile, batch_panel, cells_b,
                     tblidx_b, table_face_flat, tc: int = 128, tz: int = 8):
         """A plan on a given slot layout (voxtpu's, in the tests); the
         x_hit snapshot is taken at the soft plan's build coordinates."""
-        plan = object.__new__(cls)
-        cells_b = np.asarray(cells_b, np.int32)
-        tbl = np.asarray(table_face_flat).size // max(cells_b.shape[0], 1)
-        plan._setup_seg(soft_plan, soft_plan.plan_coords, device, tc, tz, tbl,
-                        batch_tile, batch_panel, cells_b, tblidx_b, table_face_flat)
-        plan.num_pairs = int((np.asarray(table_face_flat) >= 0).sum())
-        plan.num_fragments = int((cells_b >= 0).sum())
-        return plan
-
-    def _setup_seg(self, soft_plan, coords, device, tc, tz, tbl, batch_tile,
-                   batch_panel, cells_b, tblidx_b, table_face_flat):
         n = soft_plan.spec.n
         _check_geometry(n, tc, tz)
-        self.tz = tz
-        self.batch_panel = np.asarray(batch_panel, np.int32)
-        _check_range(self.batch_panel, "batch_panel", 0, n - PANEL + 1)
-        if (self.batch_panel % LATTICE).any():
+        batch_panel = np.asarray(batch_panel, np.int32)
+        _check_range(batch_panel, "batch_panel", 0, n - PANEL + 1)
+        if (batch_panel % LATTICE).any():
             raise ValueError(f"batch_panel: panels start on multiples of {LATTICE}")
-        self._setup_tables(soft_plan, device, tc, tbl, cells_b, tblidx_b,
-                           batch_tile, table_face_flat)
-        key = self.batch_tile.astype(np.int64) * n + self.batch_panel
-        self.run_start = tile_runs(key)  # runs of equal (tile, panel) keys
-        self.num_runs = self.run_start.size - 1
-        self.batch_panel_d = self._to_device(self.batch_panel, torch.int32)
-        self.run_start_d = self._to_device(self.run_start, torch.int32)
-        self._snapshot(soft_plan, coords)
+        plan = cls._on_layout(soft_plan, device, cells_b, tblidx_b, batch_tile,
+                              table_face_flat, tc)
+        plan.tz = tz
+        plan.batch_panel_d = _upload(NULL_SPAN, batch_panel, plan.device)
+        # runs of equal (tile, panel) keys
+        run_start = tile_runs(np.asarray(batch_tile, np.int64) * n + batch_panel)
+        plan.run_start_d = _upload(NULL_SPAN, run_start, plan.device)
+        plan.num_runs = run_start.size - 1
+        plan._snapshot(soft_plan, soft_plan.plan_coords)
+        return plan
 
     def _snapshot(self, soft_plan, coords) -> None:
         """Build-time x-hit planes and each face's window centre and

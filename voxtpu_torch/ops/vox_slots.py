@@ -2,19 +2,21 @@
 and voxtpu's whole-axis slot pipeline.
 
 Port of `voxtpu/ops/vox_slots.py`. The candidate -> cell mapping of a
-fixed topology is static, so the host builds it once: every triangle's
-exact y/z bounding-box rectangle of candidate cells, cut into batches
-of slots. Per call, `_slot_emit` evaluates each slot's plane
-intersection and edge tests (the value-dependent part) on the device.
-The banded pipeline (`ops/vox_slots_banded.py`) uses these pieces;
+fixed topology is static, so a plan builds it once, on the plan's
+device: every triangle's exact y/z bounding-box rectangle of candidate
+cells (`_candidate_counts`, `_expand_candidates`), cut into batches of
+slots. Per call, `_slot_emit` evaluates each slot's plane intersection
+and edge tests (the value-dependent part) on the device. The banded
+pipeline (`ops/vox_slots_banded.py`) uses these pieces;
 `SlotVoxPipeline`, voxtpu's cross-check of it, fills each tile's
 batches over the whole x axis with kernel B2.
 
-`_slot_emit` is torch ops (voxtpu runs it as XLA, not Pallas). Its
-arithmetic matches `vox_slots.py:154-179` term for term, and eager
-torch rounds each operation on its own, which is what the oracle
-bit-parity needs; origin and voxel size stay float32 tensors, never
-Python floats, inside the arithmetic.
+`_candidate_counts` and `_slot_emit` are torch ops (voxtpu runs them as
+NumPy and XLA, not Pallas). Their arithmetic matches voxtpu's term for
+term (`vox_slots.py:154-179` for the emit), and eager torch rounds each
+operation on its own, which is what the oracle bit-parity needs; origin
+and voxel size stay float32 tensors, never Python floats, inside the
+arithmetic.
 """
 
 from __future__ import annotations
@@ -24,55 +26,36 @@ import torch
 
 from voxtpu_torch.grids.voxel_grid import WORD_BITS, GridSpec, VoxelGrid
 from voxtpu_torch.mesh.mesh import Mesh
-from voxtpu_torch.ops.vox import _edge_zy, _triangle_windows
-from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS, fill_layout,
-                                       tile_batches, tile_flags, wide_fill)
+from voxtpu_torch.ops.vox import _edge_zy
+from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS, _gather_batches,
+                                       fill_layout, tile_batches, tile_flags, wide_fill)
 
 
-def _exact_candidates(mesh: Mesh, spec: GridSpec):
-    """Exact per-triangle y/z bounding-box rectangles of candidate cells.
-
-    Returns (tri, cell, v0, v1, v2): `tri[i]` the triangle owning
-    candidate i, `cell[i] = z * n + y` its YZ cell (int64), and the
-    triangle vertex arrays (host f32). A cell center outside the y/z
-    bbox can never pass the inclusive edge tests."""
-    n = spec.n
-    v0, v1, v2, sy, sz, _ = _triangle_windows(mesh, spec)
-    oy, oz = np.float32(spec.origin[1]), np.float32(spec.origin[2])
-    vs = np.float32(spec.voxel_size)
-    ey = np.clip(np.ceil(
-        (np.maximum(np.maximum(v0[:, 1], v1[:, 1]), v2[:, 1]) - oy)
-        / vs).astype(np.int64), 0, n)
-    ez = np.clip(np.ceil(
-        (np.maximum(np.maximum(v0[:, 2], v1[:, 2]), v2[:, 2]) - oz)
-        / vs).astype(np.int64), 0, n)
-    wy = np.maximum(ey - sy, 0)
-    wz = np.maximum(ez - sz, 0)
-    counts = wy * wz
-    total = int(counts.sum())
-    if not total:
-        return (np.zeros((0,), np.int32), np.zeros((0,), np.int64),
-                v0, v1, v2)
-    tri = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
-    cum = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    offs = np.arange(total, dtype=np.int64) - np.repeat(cum, counts)
-    wy_r = np.repeat(wy, counts)
-    dy = offs % np.maximum(wy_r, 1)
-    dz = offs // np.maximum(wy_r, 1)
-    ys = np.repeat(sy.astype(np.int64), counts) + dy
-    zs = np.repeat(sz.astype(np.int64), counts) + dz
-    cell = zs * n + ys
-    return tri, cell, v0, v1, v2
+def _candidate_counts(tri3: torch.Tensor, origin: torch.Tensor, vs: torch.Tensor, n: int):
+    """Every triangle's exact y/z bounding-box rectangle of candidate
+    cells (voxtpu's, `vox_slots.py:73-108`, on `vox._triangle_windows`'
+    starts, term for term in float32): (start (F, 2) int64 first y, z
+    cell, w (F, 2) int64 its widths, counts (F,) int64 = wy * wz).
+    `tri3` is (F, 3, 3) float32 vertex rows, `origin` (3,) and `vs` ()
+    float32 on its device. A cell center outside the y/z bbox can never
+    pass the inclusive edge tests."""
+    yz = tri3[:, :, 1:]
+    o = origin[1:]
+    start = torch.floor((yz.amin(1) - o) / vs).to(torch.int32).clamp(0, n).long()
+    end = torch.ceil((yz.amax(1) - o) / vs).to(torch.int64).clamp(0, n)
+    w = (end - start).clamp(min=0)
+    return start, w, w[:, 0] * w[:, 1]
 
 
-def _batch_index(starts: np.ndarray, ends: np.ndarray, values, tb: int,
-                 fill):
-    """Gather per-slot host arrays into a (bcount, tb) batch layout."""
-    total = values.shape[0]
-    idx = starts[:, None] + np.arange(tb, dtype=np.int64)[None, :]
-    in_range = idx < ends[:, None]
-    idx_c = np.clip(idx, 0, max(total - 1, 0))
-    return np.where(in_range, values[idx_c] if total else fill, fill)
+def _expand_candidates(start, w, counts, total: int, n: int):
+    """The candidates of `_candidate_counts`' rectangles, triangle by
+    triangle, each rectangle y fastest: (face (total,) int64 the owning
+    triangle, cell (total,) int64 = z * n + y)."""
+    face = torch.repeat_interleave(counts, output_size=total)
+    offs = torch.arange(total, device=counts.device) - (torch.cumsum(counts, 0) - counts)[face]
+    wy = w[face, 0]
+    cell = (start[face, 1] + offs // wy) * n + start[face, 0] + offs % wy
+    return face, cell
 
 
 def _vertex_rows(tri3: torch.Tensor) -> torch.Tensor:
@@ -142,12 +125,15 @@ def _slot_emit(rows, local: torch.Tensor, batch_tile: torch.Tensor,
 
 class SlotVoxPipeline:
     """Whole-pipeline voxelizer with a static slot layout
-    (`vox_slots.py:195-281`), built once on the host for one (mesh,
-    grid) pair on `device`: every candidate of `_exact_candidates` owns a
-    slot, slots are sorted by YZ tile (stable) and cut into batches of
-    tb = tb_sub * 128 per tile. Each call is `_slot_emit` and B2 over
-    the whole x axis of every tile (`wide_fill`, on the plan's
-    `FillLayout`). The arrays equal voxtpu's: `rows` (nine (B, tb_sub,
+    (`vox_slots.py:195-281`), built once on `device` for one (mesh,
+    grid) pair: every candidate of `_candidate_counts` owns a slot,
+    slots are sorted by YZ tile (stable) and cut into batches of tb =
+    tb_sub * 128 per tile. The mesh goes up once and the candidates,
+    their sort and the slot gathers are torch ops there; one host read
+    of the (num_tiles + 1) tile bounds gives the batches
+    (`tile_batches`, `tile_flags`) and the `FillLayout`. Each call is
+    `_slot_emit` and B2 over the whole x axis of every tile
+    (`wide_fill`). The arrays equal voxtpu's: `rows` (nine (B, tb_sub,
     128) float32), `local` (int32, -1 = pad), `batch_tile`, `flags`,
     `batch_xseg` (zeros) (B,) int32, `tile_mask` (num_tiles,) bool.
 
@@ -171,36 +157,37 @@ class SlotVoxPipeline:
         self.spec, self.tc, self.tb_sub, self.seg = spec, tc, tb_sub, n
         num_tiles = (n * n) // tc
         self.num_tiles = num_tiles
+        dev = self.device = torch.empty(0, device=device).device
+        # Made once: a tensor made from host values waits for the card.
+        self._origin = spec.origin_tensor(dev)
+        self._voxel_size = spec.voxel_size_tensor(dev)
 
-        tri, cell, v0, v1, v2 = _exact_candidates(mesh, spec)
-        self.num_candidates = cell.shape[0]
-        order = np.argsort(cell // tc, kind="stable")
-        cell, tri = cell[order], tri[order]
-        local = (cell % tc).astype(np.int32)
-        bounds = np.searchsorted(cell // tc, np.arange(num_tiles + 1, dtype=np.int64))
+        tri3 = torch.from_numpy(mesh.coords).to(dev)[torch.from_numpy(mesh.faces).to(dev).long()]
+        start, w, counts = _candidate_counts(tri3, self._origin, self._voxel_size, n)
+        total = int(counts.sum())
+        face, cell = _expand_candidates(start, w, counts, total, n)
+        self.num_candidates = total
+        tile, order = torch.sort(cell // tc, stable=True)
+        local = (cell[order] % tc).int()
+        tri = face[order].int()
+        bounds = torch.searchsorted(tile, torch.arange(num_tiles + 1, device=dev)).cpu().numpy()
         batch_tiles, starts, ends = tile_batches(bounds, tb)
         flags, tile_mask = tile_flags(bounds, batch_tiles)
         self.num_batches = len(batch_tiles)
         self.num_slots = self.num_batches * tb
-        self.device = torch.empty(0, device=device).device
 
         def dev32(a):
-            return torch.from_numpy(np.asarray(a).astype(np.int32)).to(self.device)
+            return torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
 
-        tri3 = torch.from_numpy(np.stack([v0, v1, v2], axis=1)).to(self.device)
-        self.rows, self.local = _slot_rows(dev32(_batch_index(starts, ends, tri, tb, 0)),
-                                           dev32(_batch_index(starts, ends, local, tb, -1)),
-                                           _vertex_rows(tri3), tb_sub)
-
+        starts, ends = dev32(starts), dev32(ends)
+        self.rows, self.local = _slot_rows(
+            _gather_batches(tri, starts, ends, tb=tb, fill=0),
+            _gather_batches(local, starts, ends, tb=tb, fill=-1), _vertex_rows(tri3), tb_sub)
         self.batch_tile = dev32(batch_tiles)
         self.flags = dev32(flags)
-        self.batch_xseg = torch.zeros(self.num_batches, dtype=torch.int32, device=self.device)
-        self.tile_mask = torch.from_numpy(tile_mask).to(self.device)
-        self.layout = fill_layout(batch_tiles, num_tiles, self.device, nw=n // WORD_BITS,
-                                  tc=tc)
-        # Made once: a tensor made from host values waits for the card.
-        self._origin = spec.origin_tensor(self.device)
-        self._voxel_size = spec.voxel_size_tensor(self.device)
+        self.batch_xseg = torch.zeros(self.num_batches, dtype=torch.int32, device=dev)
+        self.tile_mask = torch.from_numpy(tile_mask).to(dev)
+        self.layout = fill_layout(batch_tiles, num_tiles, dev, nw=n // WORD_BITS, tc=tc)
 
     def words(self) -> torch.Tensor:
         """One call: the emit, then B2 -> (n, n, n/32) int32 words."""

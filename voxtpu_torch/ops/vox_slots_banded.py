@@ -58,8 +58,9 @@ from voxtpu_torch.ops.vox_cuda import (TB_LANE, TB_SUB, TILE_CELLS,
                                        _check_slots, _gather_batches, _group_factor,
                                        _layout, fill_layout, suffix_parity_words,
                                        tile_batches, wide_fill_into)
-from voxtpu_torch.ops.vox_slots import _slot_emit, _slot_rows, _vertex_rows
-from voxtpu_torch.utils.trace import span
+from voxtpu_torch.ops.vox_slots import (_candidate_counts, _expand_candidates, _slot_emit,
+                                        _slot_rows, _vertex_rows)
+from voxtpu_torch.utils.trace import _read, _upload, span
 
 # Fill window columns (multiple of 32; >= 32 + 2*ceil(err) + 1).
 BAND = 256
@@ -178,50 +179,6 @@ def banded_total(state: BandedState, origin: torch.Tensor, vs: torch.Tensor,
         wide_fill_into(words, *wide, state.wide[3], state.wide[4], n=n, tc=tc,
                        layout=state.wide_layout)
     return words, overflow
-
-
-def _read(sp, t: torch.Tensor) -> np.ndarray:
-    """A host copy of the device values `t`: a sync, counted on the span
-    `sp` with its bytes."""
-    a = t.cpu().numpy()
-    sp.count("syncs")
-    sp.count("host_bytes", a.nbytes)
-    return a
-
-
-def _upload(sp, a, device, dtype=None) -> torch.Tensor:
-    """Host values on `device` (as `dtype`), their bytes counted on the
-    span `sp`. Made while nothing is queued on the device: an upload
-    from pageable memory waits for the stream."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
-    sp.count("host_bytes", t.nbytes)
-    return t
-
-
-def _candidate_counts(tri3: torch.Tensor, origin: torch.Tensor, vs: torch.Tensor, n: int):
-    """Every triangle's exact y/z bounding-box rectangle of candidate
-    cells (`vox_slots._exact_candidates` on `vox._triangle_windows`'
-    starts, term for term in float32): (start (F, 2) int64 first y, z
-    cell, w (F, 2) int64 its widths, counts (F,) int64 = wy * wz).
-    `tri3` is (F, 3, 3) float32 vertex rows, `origin` (3,) and `vs` ()
-    float32 on its device."""
-    yz = tri3[:, :, 1:]
-    o = origin[1:]
-    start = torch.floor((yz.amin(1) - o) / vs).to(torch.int32).clamp(0, n).long()
-    end = torch.ceil((yz.amax(1) - o) / vs).to(torch.int64).clamp(0, n)
-    w = (end - start).clamp(min=0)
-    return start, w, w[:, 0] * w[:, 1]
-
-
-def _expand_candidates(start, w, counts, total: int, n: int):
-    """The candidates of `_candidate_counts`' rectangles, triangle by
-    triangle, each rectangle y fastest: (face (total,) int64 the owning
-    triangle, cell (total,) int64 = z * n + y)."""
-    face = torch.repeat_interleave(counts, output_size=total)
-    offs = torch.arange(total, device=counts.device) - (torch.cumsum(counts, 0) - counts)[face]
-    wy = w[face, 0]
-    cell = (start[face, 1] + offs // wy) * n + start[face, 0] + offs % wy
-    return face, cell
 
 
 def _x_windows(tri3: torch.Tensor, face, cell, vs64: torch.Tensor, spec: GridSpec):

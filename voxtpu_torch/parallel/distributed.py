@@ -111,14 +111,14 @@ def init_distributed(coordinator_address: str | None = None,
         if torch.cuda.is_available():
             local_rank = os.environ.get("LOCAL_RANK")
             if "LOCAL_WORLD_SIZE" in os.environ:
-                on_host = int(os.environ["LOCAL_WORLD_SIZE"])
+                local_ranks = int(os.environ["LOCAL_WORLD_SIZE"])
             elif _on_this_host(coordinator_address):
-                on_host = num_processes
+                local_ranks = num_processes
             else:
-                on_host = None
+                local_ranks = None
             card = rank_card(torch.cuda.device_count(), local_device_ids=local_device_ids,
                              local_rank=None if local_rank is None else int(local_rank),
-                             process_id=process_id, ranks_on_host=on_host, backend=backend)
+                             process_id=process_id, ranks_on_host=local_ranks, backend=backend)
             torch.cuda.set_device(card)
             if backend == "nccl":
                 device_id = torch.device("cuda", card)

@@ -26,10 +26,14 @@ the serving plan's ``vox.plan.candidates``, ``.windows``, ``.batches``
 and ``.upload`` (`ops/vox_slots_banded.py`), the soft plan
 ``soft.plan`` (`ops/soft_vox.py::make_soft_plan`, at a fit's build and
 at each refresh) and the engine's ``soft.engine_plan``
-(`models/fit.py`), with the fused plan's phases ``soft.engine_plan.cells``,
-``.cut`` and ``.tables`` inside it (`ops/soft_vox_fused.py`), and the JFA's ``jfa.unpack``, ``jfa.seed_init`` and
-``jfa.flood`` (`ops/jfa.py`, `ops/jfa_cuda.py`). In a trace each is a
-range named ``voxtpu.<name>`` beside the kernels it launched.
+(`models/fit.py`), with the fused and seg plans' phases
+``soft.engine_plan.cells``, ``.cut`` and ``.tables`` inside it
+(`ops/soft_vox_fused.py`, `ops/soft_vox_seg.py`), and the JFA's
+``jfa.unpack``, ``jfa.seed_init`` and ``jfa.flood`` (`ops/jfa.py`,
+`ops/jfa_cuda.py`). In a trace each is a range named ``voxtpu.<name>``
+beside the kernels it launched. A plan builder moves its host values
+through `_upload` and `_read`, which count the bytes and the syncs on
+the phase's span.
 
 The gate: a span does anything only while a `torch.profiler` profile
 runs in the process. Without one, :func:`span` returns one module-level
@@ -59,6 +63,7 @@ import dataclasses
 import threading
 import time
 
+import numpy as np
 import torch
 
 # Records the store keeps; older ones are dropped and counted.
@@ -208,6 +213,24 @@ def span(name: str, device=None):
     if not _profiling():
         return NULL_SPAN
     return _Span(name, device)
+
+
+def _read(sp, t: torch.Tensor) -> np.ndarray:
+    """A host copy of the device values `t`: a sync, counted on the span
+    `sp` with its bytes."""
+    a = t.cpu().numpy()
+    sp.count("syncs")
+    sp.count("host_bytes", a.nbytes)
+    return a
+
+
+def _upload(sp, a, device, dtype=None) -> torch.Tensor:
+    """Host values on `device` (as `dtype`), their bytes counted on the
+    span `sp`. Made while nothing is queued on the device: an upload
+    from pageable memory waits for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    sp.count("host_bytes", t.nbytes)
+    return t
 
 
 def recorded() -> list[SpanRecord]:
