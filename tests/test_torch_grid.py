@@ -15,6 +15,7 @@ from voxtpu.grids.voxel_grid import GridSpec as JSpec
 from voxtpu.grids.voxel_grid import VoxelGrid as JGrid
 from voxtpu.grids.voxel_grid import pack_bits as j_pack_bits
 from voxtpu.mesh import grid_to_mesh as j_g2m
+from voxtpu.mesh.bounding_box import calculate_bounding_box as j_bounding_box
 from voxtpu.mesh.mesh import Mesh as JMesh
 from voxtpu.mesh.obj_io import export_mesh as j_export
 from voxtpu.mesh.obj_io import import_mesh as j_import
@@ -23,6 +24,7 @@ from voxtpu_torch import interop
 from voxtpu_torch.grids.voxel_grid import GridSpec, VoxelGrid, pack_bits, unpack_bits
 from voxtpu_torch.mesh import grid_to_mesh as t_g2m
 from voxtpu_torch.mesh import procedural
+from voxtpu_torch.mesh.bounding_box import _WIDE, calculate_bounding_box
 from voxtpu_torch.mesh.mesh import Mesh
 from voxtpu_torch.mesh.obj_io import export_mesh, import_mesh
 from voxtpu_torch.ops.csg import csg
@@ -68,13 +70,67 @@ def test_grid_container_matches_voxtpu():
     assert (full.words == -1).all()  # 0xFFFFFFFF
 
 
-def test_gridspec_fit_matches_voxtpu():
-    coords, _ = procedural.torus(center=(0.3, -2.0, 5.0))
+def _points(shape, seed):
+    """Random float32 points around -1, some negative on every axis."""
+    return (np.random.default_rng(seed).standard_normal(shape) * 4 - 1).astype(np.float32)
+
+
+def _signed_zeros():
+    c = _points((3 * _WIDE + 1, 3), 7)
+    c[:, 0] = np.abs(c[:, 0])
+    c[_WIDE + 5, 0], c[-1, 0] = -0.0, 0.0   # the x minimum: a zero of each sign
+    return c
+
+
+def _nan_point():
+    c = _points((2 * _WIDE + 3, 3), 8)
+    c[_WIDE + 1, 1] = np.nan
+    return c
+
+
+# The grid fit's inputs: the torus, point counts on each side of the wide
+# view's row count (k = _WIDE) up to the washer's 1,048,320 vertices, and
+# the input forms `np.asarray(..., float32).reshape(-1, 3)` takes.
+FIT_CASES = {
+    "torus": lambda: procedural.torus(center=(0.3, -2.0, 5.0))[0],
+    "p1": lambda: _points((1, 3), 1),
+    "p2": lambda: _points((2, 3), 2),
+    "k-1": lambda: _points((_WIDE - 1, 3), 3),
+    "k": lambda: _points((_WIDE, 3), 4),
+    "k+1": lambda: _points((_WIDE + 1, 3), 5),
+    "washer_vertices": lambda: _points((1_048_320, 3), 6),
+    "float64": lambda: np.random.default_rng(9).standard_normal((5 * _WIDE + 17, 3)) * 4 - 1,
+    "flat": lambda: _points((3 * (2 * _WIDE + 11),), 10),
+    "every_other_row": lambda: _points((4 * _WIDE + 9, 3), 11)[::2],
+    "three_of_six_columns": lambda: _points((3 * _WIDE + 13, 6), 12)[:, :3],
+    "signed_zeros": _signed_zeros,
+    "nan": _nan_point,
+}
+
+
+@pytest.mark.parametrize("case", list(FIT_CASES))
+def test_gridspec_fit_matches_voxtpu(case):
+    coords = FIT_CASES[case]()
+    side, (mins, maxs) = calculate_bounding_box(coords)
+    j_side, (j_mins, j_maxs) = j_bounding_box(coords)
+    assert mins.dtype == maxs.dtype == np.float32 and mins.shape == maxs.shape == (3,)
+    np.testing.assert_array_equal(mins, j_mins)   # NaN where voxtpu's is NaN
+    np.testing.assert_array_equal(maxs, j_maxs)
+    np.testing.assert_equal(side, j_side)
+    assert np.isnan(side) == (case == "nan")
     a = GridSpec.fit(coords, 96)
     b = JSpec.fit(coords, 96)
-    assert (a.n, a.origin, a.voxel_size) == (b.n, b.origin, b.voxel_size)
+    np.testing.assert_equal((a.n, a.origin, a.voxel_size), (b.n, b.origin, b.voxel_size))
     with pytest.raises(ValueError, match="N % 32"):
         GridSpec(n=48, origin=(0.0,) * 3, voxel_size=1.0).num_words
+
+
+@pytest.mark.parametrize("coords", [np.zeros((0, 3), np.float32), np.zeros(0), []],
+                         ids=["rows", "flat", "list"])
+def test_bounding_box_of_no_points_raises_as_voxtpus(coords):
+    for fn in (calculate_bounding_box, j_bounding_box):
+        with pytest.raises(ValueError, match="empty point set"):
+            fn(coords)
 
 
 def test_obj_text_and_roundtrip_match_voxtpu(tmp_path):

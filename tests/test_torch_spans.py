@@ -1,6 +1,7 @@
 """The port's spans (`utils/trace.py::span`) on the CPU: the gate, the
-bounded store, and the phases that the serving plan, the JFA, the fused
-and seg plans and a fit's plan refresh record under `torch.profiler`."""
+bounded store, and the phases that the grid fit, the serving plan, the
+JFA, the fused and seg plans and a fit's plan refresh record under
+`torch.profiler`."""
 
 import glob
 import json
@@ -95,6 +96,21 @@ def test_store_drops_its_oldest_records_and_counts_them(monkeypatch):
     assert tr.dropped() == 2
     tr.clear()
     assert tr.recorded() == [] and tr.dropped() == 0
+
+
+def test_grid_fit_records_its_points_only_under_a_profile():
+    coords = _mesh("washer").coords
+    tr.clear()
+    plain = GridSpec.fit(coords, N)
+    assert tr.recorded() == []
+    with _profiled():
+        spec = GridSpec.fit(coords, N)
+    (record,) = tr.recorded()
+    assert (record.name, record.parent, record.counts) == ("grid.fit", None,
+                                                           {"points": len(coords)})
+    assert record.device_ms is None and record.t0 <= record.t1
+    assert spec == plain
+    tr.clear()
 
 
 @pytest.mark.parametrize("shape, band", [("icosahedron", 32), ("icosphere", 256)])
@@ -258,5 +274,5 @@ def test_cli_trace_holds_the_port_phases(tmp_path, capsys):
     assert len(files) == 1, files
     with open(files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    for phase in VOX_PHASES + ["jfa.unpack", "jfa.seed_init", "jfa.flood"]:
+    for phase in ["grid.fit"] + VOX_PHASES + ["jfa.unpack", "jfa.seed_init", "jfa.flood"]:
         assert tr.SPAN_PREFIX + phase in names, phase

@@ -18,6 +18,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from voxtpu_torch.utils.trace import span
+
 WORD_BITS = 32
 
 
@@ -26,7 +28,8 @@ class GridSpec:
     """Static grid geometry: N voxels/side, world origin, voxel size.
 
     ``voxel_size = longest_bbox_side / N``, origin = bbox min corner
-    (the reference CLI's grid fit, `apps/cli/main.cpp:77-87`)."""
+    (the reference CLI's grid fit, `apps/cli/main.cpp:77-87`); `fit`
+    runs in the host span ``grid.fit`` (count ``points``)."""
 
     n: int
     origin: Tuple[float, float, float]
@@ -36,7 +39,9 @@ class GridSpec:
     def fit(coords: np.ndarray, n: int) -> "GridSpec":
         from voxtpu_torch.mesh.bounding_box import calculate_bounding_box
 
-        side, (mins, _) = calculate_bounding_box(coords)
+        with span("grid.fit") as sp:
+            side, (mins, _) = calculate_bounding_box(coords)
+            sp.count("points", np.size(coords) // 3)
         return GridSpec(n=int(n), origin=tuple(float(v) for v in mins),
                         voxel_size=side / n)
 

@@ -22,7 +22,8 @@ ui.perfetto.dev, chrome://tracing or TensorBoard's profile plugin.
 such ranges.
 
 Spans. The port marks the phases where its time goes with :func:`span`:
-the serving plan's ``vox.plan.candidates``, ``.windows``, ``.batches``
+the grid fit ``grid.fit`` (`grids/voxel_grid.py::GridSpec.fit`), the
+serving plan's ``vox.plan.candidates``, ``.windows``, ``.batches``
 and ``.upload`` (`ops/vox_slots_banded.py`), the soft plan
 ``soft.plan`` (`ops/soft_vox.py::make_soft_plan`, at a fit's build and
 at each refresh) and the engine's ``soft.engine_plan``
